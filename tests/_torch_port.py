@@ -1,0 +1,103 @@
+"""Helpers for the tpuseg_torch parity tests (tests/test_torch_*.py).
+
+The same seeded numpy inputs and the same weights go through ``tpuseg`` (the
+reference, on the CPU) and its ``tpuseg_torch`` counterpart. Weights cross
+over through ``tpuseg_torch.convert.state_dict_from_flax``.
+"""
+from __future__ import annotations
+
+import jax
+import numpy as np
+import torch
+
+from tpuseg_torch.convert import state_dict_from_flax
+
+
+def set_threads():
+    # the suite runs in several xdist workers at once
+    torch.set_num_threads(2)
+
+
+def flax_shapes(model, *args, **kw):
+    """``tpuseg`` variable shapes of ``model`` at the example inputs
+    (``jax.eval_shape`` traces the init; nothing is compiled or run)."""
+    return jax.eval_shape(
+        lambda: model.init(jax.random.PRNGKey(0), *args, **kw))
+
+
+def random_variables(model, rng, *args, **kw):
+    """Seeded random ``tpuseg`` variables (numpy leaves) for ``model``."""
+    return randomize(flax_shapes(model, *args, **kw), rng)
+
+
+def randomize(variables, rng: np.random.RandomState):
+    """Random weights that keep activations O(1), and random BN affine
+    parameters and running statistics, so the weight mapping is
+    load-bearing (a swapped BN leaf or a wrong transpose shows)."""
+    def param(path, a):
+        name = getattr(path[-1], "key", "")
+        if name == "kernel":
+            fan_in = int(np.prod(a.shape[:-1]))
+            return rng.randn(*a.shape).astype(np.float32) / np.sqrt(fan_in)
+        if name == "scale":
+            return (1.0 + 0.2 * rng.randn(*a.shape)).astype(np.float32)
+        return (0.1 * rng.randn(*a.shape)).astype(np.float32)  # biases
+
+    def stat(path, a):
+        if getattr(path[-1], "key", "") == "mean":
+            return (0.1 * rng.randn(*a.shape)).astype(np.float32)
+        return (0.7 + 0.3 * np.abs(rng.randn(*a.shape))).astype(np.float32)
+
+    out = {"params": jax.tree_util.tree_map_with_path(
+        param, variables["params"])}
+    if "batch_stats" in variables:
+        out["batch_stats"] = jax.tree_util.tree_map_with_path(
+            stat, variables["batch_stats"])
+    return out
+
+
+def load_into(module: torch.nn.Module, variables, flax_path: str = "",
+              torch_prefix: str = "") -> torch.nn.Module:
+    """Load ``tpuseg`` variables into the port's module (strict) and put it
+    in eval mode. A sub-module's variables are first placed at
+    ``flax_path`` of the full model (e.g. "ocr/ocr_distri/object_context"),
+    where the key map names them, and ``torch_prefix`` (the port's name of
+    that sub-module, e.g. "ocr.ocr_distri_head.object_context_block.") is
+    stripped from the converted keys."""
+    trees = []
+    for coll in ("params", "batch_stats"):
+        tree = jax.tree.map(np.asarray, variables.get(coll, {}))
+        for part in reversed([p for p in flax_path.split("/") if p]):
+            tree = {part: tree}
+        trees.append(tree)
+    sd = state_dict_from_flax(*trees)
+    assert all(k.startswith(torch_prefix) for k in sd), torch_prefix
+    sd = {k[len(torch_prefix):]: v for k, v in sd.items()}
+    module.load_state_dict(sd, strict=True)
+    return module.eval()
+
+
+def nchw(a: np.ndarray) -> torch.Tensor:
+    """NHWC numpy -> NCHW torch (the port's internal layout)."""
+    return torch.from_numpy(np.ascontiguousarray(a)).permute(0, 3, 1, 2)
+
+
+def to_np(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        return t.detach().float().numpy()
+    return np.asarray(t, np.float32)
+
+
+def nhwc_np(t: torch.Tensor) -> np.ndarray:
+    return to_np(t.permute(0, 2, 3, 1))
+
+
+def max_abs(a, b) -> float:
+    return float(np.abs(to_np(a).astype(np.float64)
+                        - to_np(b).astype(np.float64)).max())
+
+
+def l1_rel(a, b) -> float:
+    a, b = to_np(a).astype(np.float64), to_np(b).astype(np.float64)
+    return float(np.abs(a - b).sum() / max(np.abs(b).sum(), 1e-30))
+

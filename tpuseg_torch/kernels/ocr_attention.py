@@ -1,0 +1,91 @@
+"""Fused OCR object attention: CUDA kernel wrapper and its plain version.
+
+Port of ``tpuseg/kernels/ocr_attention.py``. Per image,
+``ctx = softmax_K(Q Kᵀ / √d) V`` with f32 similarities and softmax, the
+attention rounded to V's dtype before the second product, f32 accumulation
+and the result in Q's dtype. The kernel is ``csrc/ocr_attention.cu``; its
+header says what bounds it on the H100 and how it is laid out.
+
+Dispatch: a CPU tensor takes :func:`object_attention_reference`; a CUDA
+tensor launches the kernel or raises. There is no fallback.
+"""
+from __future__ import annotations
+
+import torch
+
+from tpuseg_torch.kernels import _build
+
+# kernel launches since the last reset (chip_smoke.py reads and resets it)
+LAUNCHES = 0
+
+MAX_KEYS = 128
+MAX_DIM = 1024
+_SMEM_LIMIT = 232448  # H100 dynamic shared memory a block may use
+_WARPS = 8
+
+
+def object_attention_reference(q: torch.Tensor, key: torch.Tensor,
+                               val: torch.Tensor) -> torch.Tensor:
+    """Plain version (tpuseg ``reference_object_attention``): q (B, N, d),
+    key/val (B, K, d) -> (B, N, d) in q's dtype."""
+    d = q.shape[-1]
+    sim = torch.bmm(q.float(), key.float().transpose(1, 2)) * (d ** -0.5)
+    attn = torch.softmax(sim, dim=-1)
+    ctx = torch.bmm(attn.to(val.dtype).float(), val.float())
+    return ctx.to(q.dtype)
+
+
+def _check(q, key, val):
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"q must be bfloat16 or float32, got {q.dtype}")
+    for name, t in (("key", key), ("val", val)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    if q.dim() != 3 or key.shape != val.shape or key.dim() != 3 \
+            or key.shape[0] != q.shape[0] or key.shape[2] != q.shape[2]:
+        raise ValueError(f"shapes q {tuple(q.shape)}, key {tuple(key.shape)}"
+                         f", val {tuple(val.shape)}: want (B, N, d), "
+                         f"(B, K, d), (B, K, d)")
+    b, n, d = q.shape
+    k = key.shape[1]
+    if not 1 <= k <= MAX_KEYS:
+        raise ValueError(f"class axis {k} outside 1..{MAX_KEYS}")
+    if d % 8 or d > MAX_DIM:
+        raise ValueError(f"head width {d} must be a multiple of 8, <= "
+                         f"{MAX_DIM}")
+    smem = 2 * k * d * q.element_size() + _WARPS * k * 4
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"K={k}, d={d} {q.dtype} needs {smem} B of shared "
+                         f"memory, above {_SMEM_LIMIT}")
+
+
+def fused_object_attention(q: torch.Tensor, key: torch.Tensor,
+                           val: torch.Tensor) -> torch.Tensor:
+    """q (B, N, d) pixel queries; key/val (B, K, d) class proxies ->
+    (B, N, d) context in q's dtype."""
+    _check(q, key, val)
+    if q.device.type == "cpu":
+        return object_attention_reference(q, key, val)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    for name, t in (("q", q), ("key", key), ("val", val)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    b, n, d = q.shape
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    global LAUNCHES
+    lib = _build.library()
+    err = lib.tpuseg_ocr_attention(
+        q.data_ptr(), key.data_ptr(), val.data_ptr(), out.data_ptr(),
+        b, n, key.shape[1], d, float(d) ** -0.5,
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "ocr_attention")
+    LAUNCHES += 1
+    return out

@@ -1,0 +1,32 @@
+"""Model registry: ``cfg.model.arch`` = "module.Factory" (reference:
+network/__init__.py:45-54), resolved against this package's modules.
+
+``model.remat`` / ``model.remat_stages`` are training memory knobs with no
+effect on eval values; they are accepted and ignored until the training
+slice (ROADMAP Queue 1 item 9).
+"""
+from __future__ import annotations
+
+import importlib
+
+import torch
+
+from tpuseg_torch.models.layers import init_weights
+
+# archs ported so far, per module
+PORTED = {"ocrnet": ("HRNet", "HRNet_Mscale", "HRNet_Mscale_Tiny")}
+
+
+def get_model(cfg, seed: int = 0) -> torch.nn.Module:
+    """Build ``cfg.model.arch`` on the CPU with a seeded fresh init
+    (``torch.Generator(seed)``); move it with ``.to(device)``."""
+    module_name, fn_name = cfg.model.arch.split(".")
+    if fn_name not in PORTED.get(module_name, ()):
+        raise NotImplementedError(
+            f"model.arch={cfg.model.arch!r} is not ported to tpuseg_torch "
+            f"yet (ROADMAP.md Queue 1, item 12 'the rest of the zoo'); "
+            f"ported: {sorted(f'{m}.{f}' for m, fs in PORTED.items() for f in fs)}")
+    mod = importlib.import_module(f"tpuseg_torch.models.{module_name}")
+    model = getattr(mod, fn_name)(cfg)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model

@@ -1,0 +1,115 @@
+"""Shared building blocks: conv with compute-dtype casting, BN, heads.
+
+Port of ``tpuseg/models/layers.py:93-230``. Parameters are f32; a conv
+casts its weight (and bias) to the dtype of its input, so the compute dtype
+is the dtype the trunk casts its input to (``model.compute_dtype``, bf16 by
+default), as ``tpuseg``'s ``dtype=`` convs do.
+
+Module names follow the NVIDIA reference's torch state-dict tree, so that
+``tools/convert_torch_ckpt.py::flax_to_torch_key`` maps ``tpuseg``'s
+variables onto this package's parameters unchanged.
+
+Eval only: ``Norm`` is ``nn.BatchNorm2d(eps=1e-5, momentum=0.1)``;
+``tpuseg``'s ``TorchBatchNorm`` copies torch's own running-variance update,
+so nothing needs porting for it.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` whose f32 parameters are cast to the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
+                        self.padding, self.dilation, self.groups)
+
+
+def conv(cin: int, cout: int, kernel: int, stride: int = 1,
+         padding: int | None = None, dilation: int = 1,
+         bias: bool = False) -> Conv2d:
+    """Conv with torch-style symmetric padding, ``(kernel-1)//2*dilation``
+    by default (tpuseg ``layers.conv``)."""
+    pad = padding if padding is not None else (kernel - 1) // 2 * dilation
+    return Conv2d(cin, cout, kernel, stride=stride, padding=pad,
+                  dilation=dilation, bias=bias)
+
+
+def Norm(channels: int) -> nn.BatchNorm2d:
+    """Batch norm with torch defaults, as the reference (mynn.py:18-24)."""
+    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+
+
+def bn_relu(channels: int) -> nn.Sequential:
+    """The reference's ``BNReLU`` (Sequential(BN, ReLU)): BN at ``.0``."""
+    return nn.Sequential(Norm(channels), nn.ReLU())
+
+
+def ConvNormAct(cin: int, cout: int, kernel: int = 3, bias: bool = False
+                ) -> nn.Sequential:
+    """conv -> BNReLU as the reference's OCR blocks name it: the conv at
+    ``.0`` and the BN at ``.1.0`` (tpuseg ``ConvNormAct``)."""
+    return nn.Sequential(conv(cin, cout, kernel, bias=bias), bn_relu(cout))
+
+
+class AttnHead(nn.Module):
+    """Scale-attention head: conv-BN-relu (x2) -> conv -> sigmoid in f32
+    (tpuseg ``AttnHead``; reference make_attn_head, network/utils.py:
+    343-367). ``old_arch`` keeps the reference's ``kernel_size=out_ch``,
+    unpadded final conv and its zero init (utils.py:332-381)."""
+
+    def __init__(self, cin: int, out_ch: int = 1, bot_ch: int = 256,
+                 inner_3x3: bool = True, dropout: bool = False,
+                 old_arch: bool = False):
+        super().__init__()
+        self.conv0 = conv(cin, bot_ch, 3)
+        self.bn0 = Norm(bot_ch)
+        if old_arch or inner_3x3:
+            self.conv1 = conv(bot_ch, bot_ch, 3)
+            self.bn1 = Norm(bot_ch)
+        else:
+            self.conv1 = self.bn1 = None
+        self.drop = nn.Dropout(0.5) if dropout and not old_arch else None
+        if old_arch:
+            self.conv2 = conv(bot_ch, out_ch, out_ch, padding=0)
+            for c in (self.conv0, self.conv1, self.conv2):
+                c.zero_init = True  # init_attn (utils.py:370-381)
+        else:
+            self.conv2 = conv(bot_ch, out_ch, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.bn0(self.conv0(x)))
+        if self.conv1 is not None:
+            x = torch.relu(self.bn1(self.conv1(x)))
+        if self.drop is not None:
+            x = self.drop(x)
+        # sigmoid in f32: attention weights feed long fusion chains
+        return torch.sigmoid(self.conv2(x).float())
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded fresh init with ``tpuseg``'s defaults: kaiming-normal (fan_in,
+    gain sqrt 2) convs, BN weight 1 / bias 0, running stats 0 / 1, conv
+    biases 0. Modules may override with an ``init_std`` attribute on a conv
+    (the HRNet trunk's normal(0.001)) or ``zero_init``."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            if getattr(m, "zero_init", False):
+                nn.init.zeros_(m.weight)
+            else:
+                fan_in = m.weight[0].numel()
+                std = getattr(m, "init_std", None) or math.sqrt(2.0 / fan_in)
+                with torch.no_grad():
+                    m.weight.normal_(0.0, std, generator=generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.BatchNorm2d):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+            m.reset_running_stats()
