@@ -1,19 +1,24 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels,
-checks each against its plain PyTorch version, drives the W48 3-scale
-eval path through the CLI's code, and compares kernels on vs off.
+checks each against its plain PyTorch version at the main path's shapes of
+the three eval scales (and at ragged and wider cases) and times it there
+beside its bound (and beside F.scaled_dot_product_attention, or the
+model's unfused cuDNN block), with inputs from device memory, drives
+the W48 3-scale eval path through the CLI's code, compares kernels on vs
+off, and profiles one image.
 
     python3 chip_smoke.py
 
 Needs one CUDA device, ``nvcc`` and this checkout; exits non-zero otherwise
-and on any failed phase. Every phase prints one line. The line before the
-last is a JSON record of the kernels; the last line is
-``{"ok": true, "device": {...}}``.
+and on any failed phase. The profile's whole table goes to
+``chiprun_out/profile_top.txt``. The line before the last is a JSON record
+of the kernels; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
 import io
 import json
+import math
 import re
 import subprocess
 import sys
@@ -22,7 +27,7 @@ import time
 import numpy as np
 import torch
 
-RECIPE = "tpuseg/cli/recipes/eval_cityscapes.yaml"
+RECIPE = "tpuseg_torch/cli/recipes/eval_cityscapes.yaml"
 MAIN_IMAGES = 5  # train.test_mode stops the eval loop after 5 images
 REPS = 20
 ON_OFF_REPS = 3  # timed images a side in each half of phase 5
@@ -40,20 +45,36 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn) -> float:
-    """Median of REPS CUDA-event timings of ``fn()`` after one warm-up."""
-    fn()
+def time_ms(fn, copies: list, inner: int = 10) -> float:
+    """Device time of one ``fn(*args)``: CUDA events around ``inner`` calls
+    issued back to back (so the host's enqueue time overlaps the device's
+    work), divided by ``inner``; the median of REPS such runs after one
+    warm-up. The calls cycle through ``copies`` of the arguments (see
+    :func:`copies_past_l2`)."""
+    fn(*copies[0])
     torch.cuda.synchronize()
     times = []
     for _ in range(REPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for i in range(inner):
+            fn(*copies[i % len(copies)])
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
+
+
+def copies_past_l2(args: tuple, nbytes: int, clone=lambda t: t.clone()):
+    """``args`` and enough clones of them that the calls between two uses of
+    one copy move three times the card's L2 (``nbytes`` a call), so that a
+    call finds its inputs in device memory, not in the L2, as ``bound_ms``
+    assumes. ``clone`` copies one argument (a shared one returns it)."""
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                 50 * 2 ** 20)
+    n = max(1, math.ceil(3 * l2 / nbytes))
+    return [args] + [tuple(map(clone, args)) for _ in range(n - 1)]
 
 
 def compare(got: torch.Tensor, want: torch.Tensor):
@@ -61,6 +82,46 @@ def compare(got: torch.Tensor, want: torch.Tensor):
     max_abs = float((g - w).abs().max())
     l1 = float((g - w).abs().sum() / w.abs().sum().clamp_min(1e-30))
     return max_abs, l1
+
+
+# kernel vs plain version: attention bf16 max|d| (f32 cases: 1e-4); the
+# bottleneck's L1-relative overall and on the image border, and its max|d|,
+# a few bf16 ulps of |out| < 32, which one wrong 8x8 tile exceeds
+ATTN_BF16_TOL = 5e-2
+BNECK_L1_TOL = 2e-2
+BNECK_MAX_TOL = 0.25
+
+
+def held_attention(tag: str, got, want, tol: float) -> float:
+    """Kernel vs plain version, logged; raises past ``tol``. Returns
+    max|d|."""
+    torch.cuda.synchronize()
+    max_abs, l1 = compare(got, want)
+    log(f"[kernel] ocr_attention {tag} {got.dtype}: max|d|={max_abs:.3e} "
+        f"l1_rel={l1:.3e} (bound max|d| < {tol})")
+    if not max_abs < tol:
+        raise AssertionError(f"ocr_attention {tag}: max|d| {max_abs}")
+    return max_abs
+
+
+def held_bottleneck(tag: str, got, want) -> dict:
+    """Kernel vs plain version, logged; raises past the bounds. Returns the
+    errors."""
+    torch.cuda.synchronize()
+    max_abs, l1 = compare(got, want)
+    border = torch.ones(got.shape[1:3], dtype=torch.bool, device="cuda")
+    border[1:-1, 1:-1] = False
+    bmax, bl1 = compare(got[:, border], want[:, border])
+    log(f"[kernel] bottleneck {tag} x={tuple(got.shape)} bf16, b1>0: "
+        f"max|d|={max_abs:.3e} l1_rel={l1:.3e}; border max|d|={bmax:.3e} "
+        f"l1_rel={bl1:.3e} (bounds l1_rel < {BNECK_L1_TOL} overall and at "
+        f"the border, max|d| < {BNECK_MAX_TOL}; max|out| "
+        f"{float(want.float().abs().max()):.3f})")
+    if not (l1 < BNECK_L1_TOL and bl1 < BNECK_L1_TOL
+            and max_abs < BNECK_MAX_TOL):
+        raise AssertionError(f"bottleneck {tag}: l1 {l1}, border {bl1}, "
+                             f"max|d| {max_abs}")
+    return {"max_abs_err": max_abs, "l1_rel": l1, "border_l1_rel": bl1}
 
 
 def phase_device():
@@ -87,7 +148,8 @@ def phase_build() -> None:
     ptxas = so.with_suffix(".log")
     if ptxas.exists():
         for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            # resources, and any wgmma the compiler had to serialize
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"[build] ptxas {line.strip()}")
 
 
@@ -109,85 +171,175 @@ def _bottleneck_case(gen, b, h, w, c=256, m=64):
     return x, w1, b1, w2, b2, w3, b3
 
 
-def phase_kernels() -> list:
-    """Each kernel vs its plain version on the card; timings at the main
-    path's 1.0x shapes. Returns the JSON records (launches filled later)."""
-    from tpuseg_torch.kernels import bottleneck_fused as bk
-    from tpuseg_torch.kernels import ocr_attention as ak
+# H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+# eval scales of the main path and the shapes each kernel sees there
+SCALES = (0.5, 1.0, 2.0)
+ATTN_N = {0.5: 32768, 1.0: 131072, 2.0: 524288}       # (1, N, 256) bf16
+BNECK_HW = {0.5: (128, 256), 1.0: (256, 512), 2.0: (512, 1024)}
 
-    gen = torch.Generator().manual_seed(0)
-    records = []
 
-    # object attention: the 1.0x main-path shape in bf16, ragged f32 cases
-    cases = [("main", 1, 131072, 19, 256, torch.bfloat16, 5e-2),
+def bound_ms(nbytes: float, flops: float):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the bf16 tensor-core rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _attention_bound(q, key, val):
+    b, n, d = q.shape
+    nbytes = 2 * q.numel() * q.element_size() + 2 * key.numel() * \
+        key.element_size()  # q read, ctx written, K and V read once
+    return bound_ms(nbytes, 4.0 * b * n * key.shape[1] * d)
+
+
+def _bottleneck_bound(x, w1, b1, w2, b2, w3, b3):
+    b, h, w, c = x.shape
+    m = w1.shape[-1]
+    nbytes = 2 * x.numel() * x.element_size() + sum(
+        t.numel() * t.element_size() for t in (w1, b1, w2, b2, w3, b3))
+    return bound_ms(nbytes, 2.0 * b * h * w * (c * m + 9 * m * m + m * c))
+
+
+def _check_attention(ak, gen):
+    """Kernel vs plain version off the main path's shapes (those are held
+    in :func:`_time_attention`): Mapillary's K = 65 in bf16 (ragged N,
+    batch 2), the f32 ragged and K = 128 cases. Returns the largest bf16
+    max|d|."""
+    cases = [("k65", 2, 3001, 65, 256, torch.bfloat16, ATTN_BF16_TOL),
              ("ragged", 2, 3001, 65, 128, torch.float32, 1e-4),
              ("k128", 1, 5001, 128, 128, torch.float32, 1e-4)]
-    main = None
+    worst = 0.0
     for tag, b, n, k, d, dt, tol in cases:
         q, key, val = _attention_case(gen, b, n, k, d, dt)
-        got = ak.fused_object_attention(q, key, val)
-        want = ak.object_attention_reference(q, key, val)
-        torch.cuda.synchronize()
-        max_abs, l1 = compare(got, want)
-        log(f"[kernel] ocr_attention {tag} B={b} N={n} K={k} d={d} {dt}: "
-            f"max|d|={max_abs:.3e} l1_rel={l1:.3e} (bound max|d| < {tol})")
-        if not max_abs < tol:
-            raise AssertionError(f"ocr_attention {tag}: max|d| {max_abs}")
-        if tag == "main":
-            main = (q, key, val, max_abs)
-    q, key, val, max_abs = main
-    ms = time_ms(lambda: ak.fused_object_attention(q, key, val))
-    plain_ms = time_ms(lambda: ak.object_attention_reference(q, key, val))
-    log(f"[kernel] ocr_attention N=131072 K=19 d=256 bf16: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of {REPS})")
-    records.append({"name": "ocr_attention", "route": "cuda",
-                    "source": "tpuseg_torch/csrc/ocr_attention.cu",
-                    "replaces": "tpuseg/kernels/ocr_attention.py:92",
-                    "launches": 0, "max_abs_err": max_abs, "ms": ms,
-                    "plain_ms": plain_ms})
+        max_abs = held_attention(
+            f"{tag} B={b} N={n} K={k} d={d}",
+            ak.fused_object_attention(q, key, val),
+            ak.object_attention_reference(q, key, val), tol)
+        if dt == torch.bfloat16:
+            worst = max(worst, max_abs)
+    return worst
 
-    # fused bottleneck: the 1.0x main-path shape and a ragged batch of 2
-    main = None
-    for tag, shape in (("main", (1, 256, 512)), ("ragged", (2, 37, 75))):
+
+def _time_attention(ak, gen, card_info):
+    """At each scale's main-path shape: the kernel held against its plain
+    version, then the kernel, the plain version and
+    F.scaled_dot_product_attention (timed as a yardstick only; the port
+    never calls it) timed."""
+    import torch.nn.functional as F
+
+    def sdpa(q, key, val):
+        return F.scaled_dot_product_attention(q[:, None], key[:, None],
+                                              val[:, None])
+
+    rows = {}
+    for s in SCALES:
+        args = _attention_case(gen, 1, ATTN_N[s], 19, 256, torch.bfloat16)
+        err = held_attention(f"{s}x B=1 N={ATTN_N[s]} K=19 d=256",
+                             ak.fused_object_attention(*args),
+                             ak.object_attention_reference(*args),
+                             ATTN_BF16_TOL)
+        copies = copies_past_l2(args, 2 * args[0].numel() * 2)
+        ms = time_ms(ak.fused_object_attention, copies)
+        plain = time_ms(ak.object_attention_reference, copies)
+        with torch.inference_mode():
+            lib = time_ms(sdpa, copies)
+        bnd, by = _attention_bound(*args)
+        rows[s] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                   "bound_ms": bnd, "bound_by": by, "max_abs_err": err}
+        log(f"[kernel] ocr_attention {s}x (1,{ATTN_N[s]},256) K=19 bf16: "
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by}), {bnd / ms:.1%} of the bound "
+            f"(median of {REPS} x 10 calls over {len(copies)} input "
+            f"copies, {card_info})")
+    return rows
+
+
+def _check_bottleneck(bk, gen):
+    """Kernel vs plain version off the main path's shapes (those are held
+    in :func:`_time_bottleneck`): a ragged batch of 2 and a batch of 3
+    smaller than two tiles, with b1 > 0. Returns the largest max|d|."""
+    worst = 0.0
+    for tag, shape in (("ragged", (2, 37, 75)), ("small", (3, 9, 13))):
         args = _bottleneck_case(gen, *shape)
-        got = bk.fused_bottleneck(*args)
-        want = bk.bottleneck_reference(*args)
-        torch.cuda.synchronize()
-        max_abs, l1 = compare(got, want)
-        border = torch.ones(got.shape[1:3], dtype=torch.bool, device="cuda")
-        border[1:-1, 1:-1] = False
-        bmax, bl1 = compare(got[:, border], want[:, border])
-        log(f"[kernel] bottleneck {tag} x={tuple(got.shape)} bf16, b1>0: "
-            f"max|d|={max_abs:.3e} l1_rel={l1:.3e}; border max|d|="
-            f"{bmax:.3e} l1_rel={bl1:.3e} (bound l1_rel < 2e-2 overall "
-            f"and at the border)")
-        if not (l1 < 2e-2 and bl1 < 2e-2):
-            raise AssertionError(f"bottleneck {tag}: l1 {l1}, border {bl1}")
-        if tag == "main":
-            main = (args, max_abs)
-    args, max_abs = main
-    ms = time_ms(lambda: bk.fused_bottleneck(*args))
-    plain_ms = time_ms(lambda: bk.bottleneck_reference(*args))
-    log(f"[kernel] bottleneck x=(1,256,512,256) bf16: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms (median of {REPS})")
-    # what the model runs with the kernel off: the unfused eval block, cuDNN
-    # bf16 convs with separate BN, ReLU and residual passes
+        err = held_bottleneck(tag, bk.fused_bottleneck(*args),
+                              bk.bottleneck_reference(*args))
+        worst = max(worst, err["max_abs_err"])
+    return worst
+
+
+def _time_bottleneck(bk, gen, card_info):
+    """At each scale's main-path shape: the kernel held against its plain
+    version, then the kernel, the plain version and the model's unfused
+    eval block (cuDNN bf16 convs with separate BN, ReLU and residual
+    passes: what runs with the kernel off) timed. No single PyTorch call
+    computes the block, so there is no library time."""
     from tpuseg_torch.models.hrnet import Bottleneck
     from tpuseg_torch.models.layers import init_weights
 
     block = Bottleneck(256, 64)
     init_weights(block, torch.Generator().manual_seed(0))
     block = block.to("cuda", memory_format=torch.channels_last).eval()
-    xc = args[0].permute(0, 3, 1, 2)  # NCHW view of the NHWC input
-    with torch.inference_mode():
-        unfused_ms = time_ms(lambda: block(xc))
-    log(f"[kernel] bottleneck x=(1,256,512,256) bf16: the model's unfused "
-        f"block (cuDNN) {unfused_ms:.4f} ms (median of {REPS})")
-    records.append({"name": "bottleneck_fused", "route": "cuda",
-                    "source": "tpuseg_torch/csrc/bottleneck_fused.cu",
-                    "replaces": "tpuseg/kernels/bottleneck_fused.py:118",
-                    "launches": 0, "max_abs_err": max_abs, "ms": ms,
-                    "plain_ms": plain_ms})
+
+    def unfused(x):
+        return block(x.permute(0, 3, 1, 2))  # NCHW view of the NHWC input
+
+    rows = {}
+    for s in SCALES:
+        args = _bottleneck_case(gen, 1, *BNECK_HW[s])
+        x, weights = args[0], args[1:]
+        packed = bk.pack_weights(*weights)  # once, as the model does
+        err = held_bottleneck(f"{s}x", bk.fused_bottleneck_packed(x, packed),
+                              bk.bottleneck_reference(*args))
+        # the input cycles through copies; the weights are shared
+        copies = copies_past_l2((x,), 2 * x.numel() * 2)
+        ms = time_ms(lambda x: bk.fused_bottleneck_packed(x, packed), copies)
+        plain = time_ms(lambda x: bk.bottleneck_reference(x, *weights),
+                        copies)
+        with torch.inference_mode():
+            unfused_ms = time_ms(unfused, copies)
+        bnd, by = _bottleneck_bound(*args)
+        rows[s] = {"ms": ms, "plain_ms": plain, "unfused_ms": unfused_ms,
+                   "bound_ms": bnd, "bound_by": by, **err}
+        log(f"[kernel] bottleneck {s}x x=(1,{BNECK_HW[s][0]},"
+            f"{BNECK_HW[s][1]},256) bf16: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, unfused cuDNN block {unfused_ms:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by}), {bnd / ms:.1%} of the bound "
+            f"(median of {REPS} x 10 calls over {len(copies)} input "
+            f"copies, {card_info})")
+    return rows
+
+
+def phase_kernels(card_info: str) -> list:
+    """Each kernel vs its plain version on the card, then timed at the main
+    path's shapes at the three scales. Returns the JSON records (launches
+    filled in by the main path's run)."""
+    from tpuseg_torch.kernels import bottleneck_fused as bk
+    from tpuseg_torch.kernels import ocr_attention as ak
+
+    gen = torch.Generator().manual_seed(0)
+    records = []
+    for name, mod, check, timed, replaces in (
+            ("ocr_attention", ak, _check_attention, _time_attention,
+             "tpuseg/kernels/ocr_attention.py:92"),
+            ("bottleneck_fused", bk, _check_bottleneck, _time_bottleneck,
+             "tpuseg/kernels/bottleneck_fused.py:118")):
+        rows = timed(mod, gen, card_info)
+        max_abs = max(check(mod, gen),
+                      *(r["max_abs_err"] for r in rows.values()))
+        main = rows[1.0]
+        records.append({
+            "name": name, "route": "cuda",
+            "source": f"tpuseg_torch/csrc/{name}.cu", "replaces": replaces,
+            "launches": 0, "max_abs_err": max_abs, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": main.get("library_ms"),
+            **({"unfused_ms": main["unfused_ms"]} if "unfused_ms" in main
+               else {}),
+            "scales": {str(s): r for s, r in rows.items()}})
     return records
 
 
@@ -340,21 +492,72 @@ def phase_on_off(card_info: str) -> None:
         raise AssertionError(f"logit std {std} outside 1e-2..1e2")
     if agree < 0.99:
         raise AssertionError(f"argmax agreement {agree} < 0.99")
+    _set_kernels(model, True)
+    _profile(lambda: runner.forward(image, label, runner.init_acc()),
+             card_info)
+
+
+def _profile(fn, card_info: str, top: int = 12) -> None:
+    """Device time by kernel name over one image with both kernels on, from
+    torch.profiler: the top entries printed, the whole table written to
+    chiprun_out/profile_top.txt."""
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        fn()  # warm-up outside the trace
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+
+    def device_us(e):
+        # device kernels only: a CPU op's entry repeats its kernels' time
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            return 0.0
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, attr):
+                return getattr(e, attr)
+        return 0.0
+
+    rows = sorted(((device_us(e), e.count, e.key)
+                   for e in prof.key_averages() if device_us(e) > 0),
+                  reverse=True)
+    total = sum(r[0] for r in rows)
+    if total <= 0:
+        log("[profile] the profiler saw no device time: not measured")
+        return
+    lines = [f"device time {total / 1e3:.3f} ms over {wall * 1e3:.3f} ms of "
+             f"wall time ({1 - total / 1e6 / wall:.1%} idle), one image, "
+             f"{card_info}"]
+    lines += [f"{us / 1e3:9.3f} ms {us / total:6.1%} x{n:<5d} {name[:90]}"
+              for us, n, name in rows]
+    out = Path("chiprun_out")
+    out.mkdir(exist_ok=True)
+    (out / "profile_top.txt").write_text("\n".join(lines) + "\n")
+    for line in lines[:top + 1]:
+        log(f"[profile] {line}")
 
 
 def main() -> int:
     name, card_info = phase_device()
     phase_build()
-    records = phase_kernels()
+    records = phase_kernels(card_info)
     launches = phase_main_path(card_info)
     for r in records:
         r["launches"] = launches[r["name"]]
     phase_on_off(card_info)
     jax_mods = sorted({m.split(".")[0] for m in sys.modules}
                       & {"jax", "jaxlib", "flax", "optax", "orbax"})
-    log(f"[imports] JAX modules loaded: {jax_mods}")
-    if jax_mods:
-        raise AssertionError(f"the port imported {jax_mods}")
+    ref_mods = sorted(m for m in sys.modules if m.split(".")[0] == "tpuseg")
+    log(f"[imports] JAX modules loaded: {jax_mods}; tpuseg modules loaded: "
+        f"{ref_mods}")
+    if jax_mods or ref_mods:
+        raise AssertionError(f"the port imported {jax_mods + ref_mods}")
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

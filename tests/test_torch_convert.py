@@ -8,6 +8,7 @@ import torch
 
 from _torch_port import set_threads
 from tpuseg.config import make_config
+from tpuseg_torch.config import make_config as port_config
 from tpuseg.models import get_model as get_flax_model
 from tpuseg_torch.convert import state_dict_from_flax
 from tpuseg_torch.models import get_model
@@ -32,11 +33,12 @@ def test_converter_covers_every_key(arch):
     cfg = make_config({"model.arch": arch})
     variables = _flax_shapes(cfg)
     sd = state_dict_from_flax(variables["params"], variables["batch_stats"])
+    port_cfg = port_config({"model.arch": arch})
     if arch.endswith("Tiny"):
-        port = get_model(cfg).state_dict()
+        port = get_model(port_cfg).state_dict()
     else:
         with torch.device("meta"):
-            port = get_model(cfg).state_dict()
+            port = get_model(port_cfg).state_dict()
     assert set(sd) == set(port), (sorted(set(sd) - set(port))[:10],
                                   sorted(set(port) - set(sd))[:10])
     for k, v in port.items():
@@ -64,7 +66,7 @@ def test_converter_loads_strict_and_transposes():
     variables = _flax_shapes(cfg)
     variables = jax.tree.map(
         lambda a: rng.randn(*a.shape).astype(np.float32), variables)
-    model = get_model(cfg)
+    model = get_model(port_config({"model.arch": "ocrnet.HRNet_Mscale_Tiny"}))
     model.load_state_dict(state_dict_from_flax(variables["params"],
                                                variables["batch_stats"]),
                           strict=True)

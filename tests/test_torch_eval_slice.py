@@ -12,12 +12,11 @@ import pytest
 import torch
 
 from _torch_port import load_into, max_abs, random_variables, set_threads
-from tpuseg.cli.main import load_config
 from tpuseg.evaluation.inference import EvalRunner as JaxRunner
 from tpuseg.losses.ce import cross_entropy as jax_ce
 from tpuseg.models.hrnet import HRNetSpec as JaxSpec
 from tpuseg.models.ocrnet import MscaleOCR as JaxMscale
-from tpuseg_torch.cli.main import main as cli_main
+from tpuseg_torch.cli.main import load_config, main as cli_main
 from tpuseg_torch.evaluation.inference import EvalRunner
 from tpuseg_torch.losses import cross_entropy
 from tpuseg_torch.models.hrnet import HRNetSpec
@@ -27,7 +26,7 @@ from tpuseg_torch.train.loop import evaluate_only
 set_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-RECIPE = os.path.join(REPO, "tpuseg", "cli", "recipes",
+RECIPE = os.path.join(REPO, "tpuseg_torch", "cli", "recipes",
                       "eval_cityscapes.yaml")
 SPEC = dict(stage1_blocks=2, stage1_channels=8,
             stage2_modules=1, stage2_channels=(8, 16), stage2_blocks=1,
@@ -96,6 +95,8 @@ def test_cli_eval_subprocess_imports_no_jax(tmp_path):
         "import atexit, runpy, sys\n"
         "atexit.register(lambda: print('JAX_MODULES', sorted({m.split('.')[0]"
         " for m in sys.modules} & {'jax', 'flax', 'optax', 'orbax'})))\n"
+        "atexit.register(lambda: print('TPUSEG_MODULES', sorted("
+        "m for m in sys.modules if m.split('.')[0] == 'tpuseg')))\n"
         "sys.argv = ['tpuseg_torch.cli'] + sys.argv[1:]\n"
         "runpy.run_module('tpuseg_torch.cli', run_name='__main__')\n")
     args = ["eval", "--device", "cpu", "--config", RECIPE,
@@ -112,6 +113,7 @@ def test_cli_eval_subprocess_imports_no_jax(tmp_path):
     assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
     assert "mean mIoU:" in res.stdout
     assert "JAX_MODULES []" in res.stdout, res.stdout[-500:]
+    assert "TPUSEG_MODULES []" in res.stdout, res.stdout[-500:]
 
 
 def test_dump_options_raise():

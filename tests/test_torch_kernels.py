@@ -132,6 +132,22 @@ def test_bottleneck_matches_tpu_kernel_interior():
     assert l1_rel(got[:, 0], tpu[:, 0]) > 2e-2
 
 
+def test_bottleneck_supports_and_cpu_pack():
+    """The CUDA kernel takes only the stage-1 width; on the CPU any width
+    runs the plain version, and packing CPU weights builds no parameter
+    block (that is packed by the CUDA source, for CUDA weights only)."""
+    cpu, gpu = torch.device("cpu"), torch.device("cuda")
+    assert bk.supports(gpu, *bk.KERNEL_SHAPE)
+    assert not bk.supports(gpu, 64, 16)
+    assert bk.supports(cpu, 64, 16)
+    x, ws, _ = _bottleneck_case(2)
+    packed = bk.pack_weights(*map(torch.from_numpy, ws))
+    assert packed.blob is None
+    xt = torch.from_numpy(np.asarray(x, np.float32)).bfloat16()
+    assert torch.equal(bk.fused_bottleneck_packed(xt, packed),
+                       bk.bottleneck_reference(xt, *packed.weights))
+
+
 def test_fold_bn_matches_jax():
     rng = np.random.RandomState(3)
     w = rng.randn(3, 3, 8, 16).astype(np.float32)            # HWIO

@@ -20,6 +20,7 @@ from _torch_port import (
     set_threads,
 )
 from tpuseg.config import make_config
+from tpuseg_torch.config import make_config as port_config
 from tpuseg.models import get_model as get_flax_model
 from tpuseg.models import hrnet as jh
 from tpuseg.models import layers as jl
@@ -81,8 +82,8 @@ def test_bottleneck_fused_gate_bf16(monkeypatch):
     version over BN-folded weights) vs tpuseg's unfused bf16 block. A
     counter proves the fused path ran."""
     calls = []
-    real = port_hrnet.fused_bottleneck
-    monkeypatch.setattr(port_hrnet, "fused_bottleneck",
+    real = port_hrnet.fused_bottleneck_packed
+    monkeypatch.setattr(port_hrnet, "fused_bottleneck_packed",
                         lambda *a: (calls.append(1), real(*a))[1])
     c, m = 64, 16
     x = jnp.asarray(_x(4, 2, 16, 24, c), jnp.bfloat16)
@@ -96,6 +97,48 @@ def test_bottleneck_fused_gate_bf16(monkeypatch):
                    .contiguous(memory_format=torch.channels_last))
     assert calls and got.dtype == torch.bfloat16
     assert l1_rel(nhwc_np(got), want) < 2e-2
+
+
+def test_bottleneck_fold_cache_follows_bn():
+    """The folded weights are built once per weight state: a second eval
+    forward reuses them, and an in-place change of a BN buffer (what a BN
+    calibration or ``load_state_dict`` does) rebuilds them, so the fused
+    path keeps following the plain block. bf16 to L1-relative < 2e-2."""
+    c, m = 64, 16
+    gen = torch.Generator().manual_seed(6)
+    block = port_hrnet.Bottleneck(c, m, fused_kernel=True).eval()
+    with torch.no_grad():
+        for p in block.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
+        for bn in (block.bn1, block.bn2, block.bn3):
+            bn.running_mean.copy_(torch.randn(bn.running_mean.shape,
+                                              generator=gen) * 0.1)
+            bn.running_var.copy_(torch.rand(bn.running_var.shape,
+                                            generator=gen) + 0.5)
+            # no BN shift: the branch then scales with bn1's 1/sqrt(var)
+            bn.weight.fill_(1.0)
+            bn.bias.zero_()
+    x = (torch.randn(1, c, 12, 20, generator=gen).bfloat16()
+         .contiguous(memory_format=torch.channels_last))
+
+    def fused_and_plain():
+        with torch.inference_mode():
+            block.fused_kernel = True
+            fused = block(x)
+            block.fused_kernel = False
+            plain = block(x)
+        return fused.float().numpy(), plain.float().numpy()
+
+    first, plain = fused_and_plain()
+    assert l1_rel(first, plain) < 2e-2
+    weights = block._folded()
+    assert block._folded() is weights  # cached: nothing changed
+    with torch.no_grad():
+        block.bn1.running_var.mul_(9.0)
+    assert block._folded() is not weights
+    second, plain2 = fused_and_plain()
+    assert l1_rel(plain2, plain) > 0.1  # the stale weights would fail
+    assert l1_rel(second, plain2) < 2e-2
 
 
 def test_hrnet_trunk_f32():
@@ -145,16 +188,17 @@ def test_ocr_block():
 def mscale_pair():
     """tpuseg's and the port's tiny MscaleOCR (f32, both kernels' switches
     on, 3-scale eval) with the same weights; one JAX compile per module."""
-    cfg = make_config({"model.arch": "ocrnet.HRNet_Mscale_Tiny",
-                       "model.n_scales": (0.5, 1.0, 2.0),
-                       "model.compute_dtype": "float32",
-                       "model.use_pallas": True,
-                       "model.fused_stage1": True})
+    overrides = {"model.arch": "ocrnet.HRNet_Mscale_Tiny",
+                 "model.n_scales": (0.5, 1.0, 2.0),
+                 "model.compute_dtype": "float32",
+                 "model.use_pallas": True,
+                 "model.fused_stage1": True}
+    cfg = make_config(overrides)
     x = _x(13, 1, 64, 128, 3)
     jm = get_flax_model(cfg)
     v = random_variables(jm, np.random.RandomState(14), jnp.asarray(x))
     want = jax.tree.map(np.asarray, _run(jm, v, jnp.asarray(x)))
-    port = load_into(get_model(cfg), v)
+    port = load_into(get_model(port_config(overrides)), v)
     with torch.inference_mode():
         got = port(torch.from_numpy(x))
     return want, got

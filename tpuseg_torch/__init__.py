@@ -3,12 +3,13 @@
 The JAX package ``tpuseg`` is the reference this package is held against
 (tests/test_torch_*.py load the same weights into both and compare). The
 module tree mirrors ``tpuseg``'s: ``tpuseg/models/hrnet.py`` ↔
-``tpuseg_torch/models/hrnet.py``. Host-side code that imports no JAX
-(``tpuseg.config``, ``tpuseg.data``, ``tpuseg.cli.main.load_config``,
-``tpuseg.utils.logging``) is shared, not copied.
+``tpuseg_torch/models/hrnet.py``. The host code the eval path runs is a
+copy kept in this package under the same module names (``config``,
+``data``, ``native``, ``utils.logging``, ``cli.main.load_config``, the YAML
+recipes in ``cli/recipes/``).
 
-This package imports ``torch`` and never ``jax``, ``flax``, ``optax`` or
-``orbax``.
+This package imports ``torch`` and never ``tpuseg``, ``jax``, ``flax``,
+``optax`` or ``orbax``.
 
 Layout: NHWC at the public edges (model input/outputs, the kernels' public
 functions, the eval forward), as in ``tpuseg``. Inside the model, convs run

@@ -1,15 +1,52 @@
 """CLI: ``python -m tpuseg_torch.cli eval --config <recipe> --set k=v ...``.
 
-Reads the same YAML recipes as ``tpuseg`` through
-``tpuseg.cli.main.load_config`` (which imports no JAX). Only ``eval`` is
-ported; the other ``tpuseg`` subcommands follow the ROADMAP queue.
+Reads the YAML recipes shipped in ``tpuseg_torch/cli/recipes/`` (copies of
+``tpuseg``'s) with ``--set`` overrides, as ``tpuseg.cli.main.load_config``
+does. Only ``eval`` is ported; the other ``tpuseg`` subcommands follow the
+ROADMAP queue.
 """
 from __future__ import annotations
 
 import argparse
+import ast
 import sys
 
-from tpuseg.cli.main import load_config
+import yaml
+
+from tpuseg_torch.config import make_config
+
+
+def _parse_value(v: str):
+    # whole Python literal first so bracketed lists ("[64,64]") and
+    # e-notation ("1e-3", a string to YAML 1.1) work
+    try:
+        return ast.literal_eval(v)
+    except (ValueError, SyntaxError):
+        pass
+    # then YAML scalar resolution — same rules as the recipe files, so
+    # 'false' becomes False (a leaked 'false' STRING is truthy and would
+    # silently invert every boolean override) and 'null'/'~' become None
+    try:
+        y = yaml.safe_load(v)
+    except yaml.YAMLError:
+        y = v
+    if not isinstance(y, str):
+        return y
+    # the bare comma form ("64,64") mirrors the reference's flag syntax
+    if "," in v:
+        return tuple(_parse_value(x) for x in v.split(",") if x != "")
+    return v
+
+
+def load_config(config_path: str | None, sets: list[str]):
+    overrides = {}
+    if config_path:
+        with open(config_path) as f:
+            overrides.update(yaml.safe_load(f) or {})
+    for item in sets:
+        key, _, val = item.partition("=")
+        overrides[key] = _parse_value(val)
+    return make_config(overrides)
 
 
 def main(argv=None) -> int:

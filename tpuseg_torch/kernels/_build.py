@@ -1,8 +1,8 @@
 """Build the CUDA kernels of ``tpuseg_torch/csrc`` at first use and bind them.
 
-The sources are compiled by ``nvcc`` into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds) and loaded with
-``ctypes``. The library lands in ``build/tpuseg_torch/`` at the root of the
+Each source is compiled by its own ``nvcc``, all started together, and the
+objects are linked into one shared library with a plain C interface (no
+PyTorch headers, so a build takes seconds), loaded with ``ctypes``. The library lands in ``build/tpuseg_torch/`` at the root of the
 checkout, named by a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is. ``nvcc``'s ptxas report
 (registers, shared memory, spills) is kept beside it as ``<name>.log``.
@@ -24,18 +24,19 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpuseg_torch"
 SOURCES = ("ocr_attention.cu", "bottleneck_fused.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points -> argtypes; every one returns a cudaError_t as int
 SIGNATURES = {
     # q, key, val, out, batch, n, num_keys, d, scale, is_bf16, stream
     "tpuseg_ocr_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
-    # x, w1, b1, w2, b2, w3, b3, out, batch, h, w, c, m, stream
-    "tpuseg_bottleneck": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _P),
-    # c, m -> dynamic shared memory bytes of one block
-    "tpuseg_bottleneck_smem_bytes": (_I, _I),
+    # x, packed parameter block, out, batch, h, w, stream
+    "tpuseg_bottleneck": (_P, _P, _P, _I, _I, _I, _P),
+    # -> bytes of the packed parameter block
+    "tpuseg_bottleneck_param_bytes": (),
+    # host pointers: w1, b1, w2, b2, w3, b3 -> the parameter block
+    "tpuseg_bottleneck_pack": (_P, _P, _P, _P, _P, _P, _P),
 }
 
 
@@ -58,16 +59,33 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {res.returncode}:\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    so.with_suffix(".log").write_text(res.stdout + res.stderr)
+    nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    compiles = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True))
+                for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                             str(CSRC / s)] for s, o in zip(SOURCES, objs))]
+    done = [(cmd, proc.communicate()[0], proc.returncode)
+            for cmd, proc in compiles]  # every nvcc has ended
+    log = [_finish(*d) for d in done]
+    tmp = so.with_name(f"{tag}.tmp.so")
+    cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    log.append(_finish(cmd, res.stdout, res.returncode))
+    for o in objs:
+        o.unlink()
+    so.with_suffix(".log").write_text("".join(log))
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     return so
+
+
+def _finish(cmd: list, output: str, code: int) -> str:
+    """nvcc's output, or raise if it failed."""
+    if code != 0:
+        raise RuntimeError(f"nvcc failed with code {code}:\n"
+                           f"{' '.join(cmd)}\n{output}")
+    return output
 
 
 @functools.lru_cache(maxsize=None)

@@ -17,10 +17,18 @@ Folded weights, NHWC-friendly as in ``tpuseg``:
   w3 (M, C)      b3 (C,)   conv3 1x1 + bn3
 weights bf16, biases f32.
 
+On CUDA the kernel reads its weights from one parameter block in the
+layout of its shared memory, which the CUDA source alone defines and packs
+(:func:`pack_weights`, built once per weight state by the model and copied
+into each block with one bulk copy). The CUDA kernel is laid out for
+HRNet's stage-1 width, (C, M) = (256, 64): see :func:`supports`.
+
 Dispatch: a CPU tensor takes :func:`bottleneck_reference`; a CUDA tensor
 launches the kernel or raises. There is no fallback.
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -30,7 +38,7 @@ from tpuseg_torch.kernels import _build
 # kernel launches since the last reset (chip_smoke.py reads and resets it)
 LAUNCHES = 0
 
-_SMEM_LIMIT = 232448  # H100 dynamic shared memory a block may use
+KERNEL_SHAPE = (256, 64)  # (C, M) the CUDA kernel's tiles are laid out for
 
 
 def fold_bn(weight: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -65,10 +73,14 @@ def bottleneck_reference(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     return y.to(x.dtype).permute(0, 2, 3, 1)
 
 
-def _check(x, w1, b1, w2, b2, w3, b3):
-    if x.dim() != 4:
-        raise ValueError(f"x must be (B, H, W, C), got {tuple(x.shape)}")
-    c = x.shape[-1]
+class PackedWeights(NamedTuple):
+    """Folded weights (``weights`` = w1, b1, w2, b2, w3, b3) and, for CUDA
+    tensors, the kernel's parameter block built from them."""
+    weights: tuple
+    blob: Optional[torch.Tensor]
+
+
+def _check_weights(c, w1, b1, w2, b2, w3, b3):
     m = w1.shape[-1]
     want = {"w1": (c, m), "b1": (m,), "w2": (9, m, m), "b2": (m,),
             "w3": (m, c), "b3": (c,)}
@@ -77,46 +89,83 @@ def _check(x, w1, b1, w2, b2, w3, b3):
         if tuple(got[name].shape) != shape:
             raise ValueError(f"{name} shape {tuple(got[name].shape)} != "
                              f"{shape} (C={c}, M={m})")
-        if got[name].device != x.device:
-            raise ValueError(f"{name} on {got[name].device}, x on "
-                             f"{x.device}")
+        if got[name].device != w1.device:
+            raise ValueError(f"{name} on {got[name].device}, w1 on "
+                             f"{w1.device}")
+
+
+def supports(device: torch.device, c: int, m: int) -> bool:
+    """Whether the wrapper takes a block of C channels and width M on this
+    device: any shape on the CPU (the plain version), only KERNEL_SHAPE on
+    CUDA."""
+    return device.type == "cpu" or (c, m) == KERNEL_SHAPE
+
+
+def pack_blob(w1, b1, w2, b2, w3, b3) -> torch.Tensor:
+    """The kernel's parameter block, a uint8 tensor on the weights' device:
+    packed on the host by ``csrc/bottleneck_fused.cu``'s
+    ``tpuseg_bottleneck_pack``, which owns its layout."""
+    lib = _build.library()
+    host = [t.detach().to("cpu", torch.float32 if i % 2 else torch.bfloat16)
+            .contiguous() for i, t in enumerate((w1, b1, w2, b2, w3, b3))]
+    blob = torch.empty(lib.tpuseg_bottleneck_param_bytes(), dtype=torch.uint8)
+    _build.check(lib.tpuseg_bottleneck_pack(
+        *(t.data_ptr() for t in host), blob.data_ptr()), "bottleneck pack")
+    return blob.to(w1.device)
+
+
+def pack_weights(w1, b1, w2, b2, w3, b3) -> PackedWeights:
+    """Folded weights ready for :func:`fused_bottleneck_packed`: the
+    parameter block is built for CUDA weights of the kernel's shape."""
+    _check_weights(w1.shape[0], w1, b1, w2, b2, w3, b3)
+    weights = (w1, b1, w2, b2, w3, b3)
+    blob = None
+    if w1.device.type == "cuda" and \
+            supports(w1.device, w1.shape[0], w1.shape[1]):
+        blob = pack_blob(*weights)
+    return PackedWeights(weights, blob)
 
 
 def fused_bottleneck(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     """Fused block over NHWC ``x`` (B, H, W, C) bf16 with folded weights
     (see the module docstring). Returns the same shape and dtype."""
-    _check(x, w1, b1, w2, b2, w3, b3)
+    return fused_bottleneck_packed(x, pack_weights(w1, b1, w2, b2, w3, b3))
+
+
+def fused_bottleneck_packed(x, packed: PackedWeights) -> torch.Tensor:
+    """The kernel's wrapper: :func:`fused_bottleneck` over weights packed
+    once by :func:`pack_weights`."""
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, H, W, C), got {tuple(x.shape)}")
+    w1 = packed.weights[0]
+    if x.shape[-1] != w1.shape[0] or x.device != w1.device:
+        raise ValueError(f"x {tuple(x.shape)} on {x.device} does not match "
+                         f"w1 {tuple(w1.shape)} on {w1.device}")
     if x.device.type == "cpu":
-        return bottleneck_reference(x, w1, b1, w2, b2, w3, b3)
+        return bottleneck_reference(x, *packed.weights)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     b, h, w, c = x.shape
     m = w1.shape[-1]
-    if c % 16 or m % 16:
-        raise ValueError(f"C={c} and M={m} must be multiples of 16")
-    tensors = {"x": x, "w1": w1, "b1": b1, "w2": w2, "b2": b2, "w3": w3,
-               "b3": b3}
-    for name, t in tensors.items():
+    names = ("w1", "b1", "w2", "b2", "w3", "b3")
+    for name, t in (("x", x), *zip(names, packed.weights)):
         want = torch.float32 if name.startswith("b") else torch.bfloat16
         if t.dtype != want:
             raise TypeError(f"{name} must be {want}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 32:
-            raise ValueError(f"{name} must be 32-byte aligned")
-    lib = _build.library()
-    smem = lib.tpuseg_bottleneck_smem_bytes(c, m)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"C={c}, M={m} needs {smem} B of shared memory, "
-                         f"above {_SMEM_LIMIT}")
+    if not supports(x.device, c, m):
+        raise ValueError(f"the CUDA kernel is built for (C, M) = "
+                         f"{KERNEL_SHAPE}, HRNet's stage-1 block; got "
+                         f"({c}, {m})")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("x must be contiguous and 16-byte aligned")
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
     global LAUNCHES
+    lib = _build.library()
     err = lib.tpuseg_bottleneck(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(),
-        b, h, w, c, m, torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), packed.blob.data_ptr(), out.data_ptr(), b, h, w,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "bottleneck_fused")
     LAUNCHES += 1
     return out

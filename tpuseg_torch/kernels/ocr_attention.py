@@ -21,7 +21,8 @@ LAUNCHES = 0
 MAX_KEYS = 128
 MAX_DIM = 1024
 _SMEM_LIMIT = 232448  # H100 dynamic shared memory a block may use
-_WARPS = 8
+_WARPS = 8            # f32 kernel: warps a block
+_TC_WARPS = 4         # bf16 kernel: warps a block, 16 Q rows a warp tile
 
 
 def object_attention_reference(q: torch.Tensor, key: torch.Tensor,
@@ -56,6 +57,10 @@ def _check(q, key, val):
         raise ValueError(f"head width {d} must be a multiple of 8, <= "
                          f"{MAX_DIM}")
     smem = 2 * k * d * q.element_size() + _WARPS * k * 4
+    if q.dtype == torch.bfloat16:
+        # tensor-core kernel: K and V padded to 16 keys, a ring of at least
+        # two 16-row Q tiles a warp
+        smem = 2 * (-(-k // 16) * 16) * d * 2 + _TC_WARPS * 2 * 16 * d * 2
     if smem > _SMEM_LIMIT:
         raise ValueError(f"K={k}, d={d} {q.dtype} needs {smem} B of shared "
                          f"memory, above {_SMEM_LIMIT}")
@@ -70,6 +75,9 @@ def fused_object_attention(q: torch.Tensor, key: torch.Tensor,
         return object_attention_reference(q, key, val)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    if q.dtype == torch.bfloat16 and q.shape[-1] % 64:
+        raise ValueError(f"bf16 head width {q.shape[-1]} must be a multiple "
+                         f"of 64 on CUDA (the tensor-core kernel's tiles)")
     for name, t in (("q", q), ("key", key), ("val", val)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")

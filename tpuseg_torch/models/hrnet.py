@@ -22,7 +22,12 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from tpuseg_torch.kernels.bottleneck_fused import fold_bn, fused_bottleneck
+from tpuseg_torch.kernels.bottleneck_fused import (
+    fold_bn,
+    fused_bottleneck_packed,
+    pack_weights,
+    supports,
+)
 from tpuseg_torch.models.layers import Norm, conv
 from tpuseg_torch.ops import resize_bilinear
 
@@ -96,9 +101,11 @@ class Bottleneck(nn.Module):
 
     With ``fused_kernel``, eval-mode blocks that are the stage-1 identity
     shape (no downsample, stride 1, bf16, C == 4 * planes) run the fused
-    kernel over BN-folded weights. ``tpuseg``'s TPU tiling conditions
-    (batch 1, H % 16, W % 128) are not needed: the CUDA kernel covers the
-    batch and masks ragged edges."""
+    kernel over BN-folded weights, where the kernel ``supports`` the width
+    (on CUDA only (C, planes) == (256, 64), the stage-1 width it is laid
+    out for). ``tpuseg``'s TPU tiling conditions (batch 1, H % 16,
+    W % 128) are not needed: the CUDA kernel covers the batch and ragged
+    edges."""
 
     expansion = 4
 
@@ -118,26 +125,43 @@ class Bottleneck(nn.Module):
         self.downsample = (_conv_bn(inplanes, out, 1, stride, relu=False)
                            if downsample else None)
 
+    def _folded(self):
+        """BN-folded weights packed for the kernel, built once and kept
+        until a conv weight or a BN parameter or buffer is replaced or
+        changed in place (``load_state_dict``, a BN calibration, ``.to``):
+        the key is each source tensor's storage and version counter."""
+        pairs = ((self.conv1, self.bn1), (self.conv2, self.bn2),
+                 (self.conv3, self.bn3))
+        key = tuple((t.data_ptr(), t._version) for c, bn in pairs
+                    for t in (c.weight, bn.weight, bn.bias, bn.running_mean,
+                              bn.running_var))
+        cached = getattr(self, "_folded_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        with torch.no_grad():
+            (w1, b1), (w2, b2), (w3, b3) = (
+                fold_bn(c.weight, bn.weight, bn.bias, bn.running_mean,
+                        bn.running_var, bn.eps) for c, bn in pairs)
+            m, bf = self.planes, torch.bfloat16
+            weights = pack_weights(
+                w1[:, :, 0, 0].t().to(bf).contiguous(), b1,          # (C, M)
+                w2.permute(2, 3, 1, 0).reshape(9, m, m).to(bf).contiguous(),
+                b2, w3[:, :, 0, 0].t().to(bf).contiguous(), b3)      # (M, C)
+        self._folded_cache = (key, weights)
+        return weights
+
     def _fused_eval(self, x):
-        (w1, b1), (w2, b2), (w3, b3) = (
-            fold_bn(c.weight, bn.weight, bn.bias, bn.running_mean,
-                    bn.running_var, bn.eps)
-            for c, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2),
-                          (self.conv3, self.bn3)))
-        m, bf = self.planes, torch.bfloat16
-        w1 = w1[:, :, 0, 0].t().to(bf).contiguous()                  # (C, M)
-        w2 = w2.permute(2, 3, 1, 0).reshape(9, m, m).to(bf).contiguous()
-        w3 = w3[:, :, 0, 0].t().to(bf).contiguous()                  # (M, C)
         # NHWC view of the channels_last activation (a no-op copy there)
         x = x.permute(0, 2, 3, 1).contiguous()
-        y = fused_bottleneck(x, w1, b1, w2, b2, w3, b3)
+        y = fused_bottleneck_packed(x, self._folded())
         return y.permute(0, 3, 1, 2)
 
     def forward(self, x):
         if (self.fused_kernel and not self.training
                 and self.downsample is None and self.stride == 1
                 and x.dtype == torch.bfloat16
-                and x.shape[1] == self.planes * self.expansion):
+                and x.shape[1] == self.planes * self.expansion
+                and supports(x.device, x.shape[1], self.planes)):
             return self._fused_eval(x)
         residual = x if self.downsample is None else self.downsample(x)
         y = torch.relu(self.bn1(self.conv1(x)))

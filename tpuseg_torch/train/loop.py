@@ -13,10 +13,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tpuseg.config import Config, eval_model_config, infer_mscale
-from tpuseg.data.setup import setup_data
-from tpuseg.utils.logging import Logger
+from tpuseg_torch.config import Config, eval_model_config, infer_mscale
 from tpuseg_torch.convert import load_reference_checkpoint
+from tpuseg_torch.data.setup import setup_data
 from tpuseg_torch.evaluation.inference import DRAIN_EVERY, EvalRunner
 from tpuseg_torch.evaluation.metrics import (
     eval_metrics_from_hist,
@@ -24,6 +23,7 @@ from tpuseg_torch.evaluation.metrics import (
 )
 from tpuseg_torch.losses import get_val_loss
 from tpuseg_torch.models import get_model
+from tpuseg_torch.utils.logging import Logger
 
 _DUMP_OPTIONS = ("dump_assets", "dump_all_images", "dump_for_auto_labelling",
                  "dump_for_submission", "dump_topn")
