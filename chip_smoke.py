@@ -4,14 +4,21 @@ the three eval scales (and at ragged and wider cases) and times it there
 beside its bound (and beside F.scaled_dot_product_attention, or the
 model's unfused cuDNN block), with inputs from device memory, drives
 the W48 3-scale eval path through the CLI's code, compares kernels on vs
-off, and profiles one image.
+off, and profiles one image. Then the training slice: one tiny f32 train
+step on the card vs the CPU and remat on vs off ([train-parity]), the
+W48 ``train_cityscapes.yaml`` run through the CLI's code for two short
+epochs over a seeded 1024x2048 Cityscapes tree with both kernels in its
+validations ([train]), remat on vs off at W48 ([train-remat]) and a
+profile of one train step ([train-profile]).
 
     python3 chip_smoke.py
 
 Needs one CUDA device, ``nvcc`` and this checkout; exits non-zero otherwise
-and on any failed phase. The profile's whole table goes to
-``chiprun_out/profile_top.txt``. The line before the last is a JSON record
-of the kernels; the last line is ``{"ok": true, "device": {...}}``.
+and on any failed phase. The profiles' whole tables go to
+``chiprun_out/profile_top.txt`` and ``chiprun_out/train_profile_top.txt``,
+the train run's log to ``chiprun_out/train/``. The line before the last is
+a JSON record of the kernels; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -493,20 +500,24 @@ def phase_on_off(card_info: str) -> None:
     if agree < 0.99:
         raise AssertionError(f"argmax agreement {agree} < 0.99")
     _set_kernels(model, True)
+    with torch.inference_mode():
+        runner.forward(image, label, runner.init_acc())  # warm-up
     _profile(lambda: runner.forward(image, label, runner.init_acc()),
              card_info)
 
 
-def _profile(fn, card_info: str, top: int = 12) -> None:
-    """Device time by kernel name over one image with both kernels on, from
+def _profile(fn, card_info: str, top: int = 12, what: str = "one image",
+             out_name: str = "profile_top.txt", tag: str = "profile",
+             inference: bool = True) -> None:
+    """Device time by kernel name over one call of ``fn`` (``what``), from
     torch.profiler: the top entries printed, the whole table written to
-    chiprun_out/profile_top.txt."""
+    chiprun_out/``out_name``. The caller has run ``fn`` before (warm)."""
     from pathlib import Path
 
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
-        fn()  # warm-up outside the trace
+    mode = torch.inference_mode() if inference else contextlib.nullcontext()
+    with mode:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -516,8 +527,11 @@ def _profile(fn, card_info: str, top: int = 12) -> None:
             wall = time.perf_counter() - t0
 
     def device_us(e):
-        # device kernels only: a CPU op's entry repeats its kernels' time
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+        # device kernels only: a CPU op's entry repeats its kernels' time,
+        # and so does the optimizer's annotation range (Optimizer.step#...)
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False) \
+                or e.key.startswith("Optimizer."):
             return 0.0
         for attr in ("self_device_time_total", "self_cuda_time_total"):
             if hasattr(e, attr):
@@ -529,18 +543,532 @@ def _profile(fn, card_info: str, top: int = 12) -> None:
                   reverse=True)
     total = sum(r[0] for r in rows)
     if total <= 0:
-        log("[profile] the profiler saw no device time: not measured")
+        log(f"[{tag}] the profiler saw no device time: not measured")
         return
-    lines = [f"device time {total / 1e3:.3f} ms over {wall * 1e3:.3f} ms of "
-             f"wall time ({1 - total / 1e6 / wall:.1%} idle), one image, "
+    lines = [f"device time {total / 1e3:.3f} ms in "
+             f"{sum(r[1] for r in rows)} kernels over {wall * 1e3:.3f} ms "
+             f"of wall time ({1 - total / 1e6 / wall:.1%} idle), {what}, "
              f"{card_info}"]
     lines += [f"{us / 1e3:9.3f} ms {us / total:6.1%} x{n:<5d} {name[:90]}"
               for us, n, name in rows]
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
-    (out / "profile_top.txt").write_text("\n".join(lines) + "\n")
+    (out / out_name).write_text("\n".join(lines) + "\n")
     for line in lines[:top + 1]:
-        log(f"[profile] {line}")
+        log(f"[{tag}] {line}")
+
+
+# ---------------------------------------------------------------- training
+
+TRAIN_RECIPE = "tpuseg_torch/cli/recipes/train_cityscapes.yaml"
+# test_mode: 10 steps an epoch, 5 val images; 40 train images give
+# class-uniform sampling at 0.5 one centroid crop a class an epoch
+TRAIN_IMAGES, VAL_IMAGES = 40, 5
+SCENE_HW, BLOCK = (1024, 2048), 128
+REMAT_STEPS = 3
+# [train-parity], tiny topology in f32: cuda vs cpu, and remat on vs off
+PARITY_TOL = {"loss_rel": 1e-4, "grad_l1": 5e-3, "stats_l1": 1e-4,
+              "remat_loss_rel": 1e-6, "remat_stats_l1": 1e-6}
+# [train-remat], W48 bf16: remat on vs off after the first step
+REMAT_TOL = {"loss_rel": 1e-3, "stats_l1": 1e-3}
+
+
+def _fake_scene(seed: int, hw=SCENE_HW):
+    """A seeded street-scene stand-in: BLOCK x BLOCK squares of random train
+    classes, each pixel its class's Cityscapes colour plus noise. Returns
+    (uint8 RGB image, raw label ids, train ids)."""
+    from tpuseg_torch.data.cityscapes_labels import PALETTE, TRAINID_TO_ID
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    ids = rng.randint(0, 19, (h // BLOCK, w // BLOCK)).astype(np.uint8)
+    tid = np.repeat(np.repeat(ids, BLOCK, 0), BLOCK, 1)
+    noise = rng.randint(-24, 25, (h, w, 3)).astype(np.int16)
+    image = np.clip(PALETTE[tid].astype(np.int16) + noise, 0, 255)
+    return image.astype(np.uint8), TRAINID_TO_ID[tid], tid
+
+
+def _write_fake_cityscapes(root: str) -> None:
+    """A Cityscapes tree (leftImg8bit / gtFine labelIds PNGs, one city a
+    split) of TRAIN_IMAGES + VAL_IMAGES seeded 1024x2048 scenes, so the
+    real data path runs: decode, scale / crop / flip, class-uniform
+    sampling, the uint8 wire."""
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    from PIL import Image
+
+    jobs = [("train", "aachen", i) for i in range(TRAIN_IMAGES)] + \
+        [("val", "lindau", i) for i in range(VAL_IMAGES)]
+
+    def write(job):
+        split, city, i = job
+        image, ids, _ = _fake_scene(1000 * (split == "val") + i)
+        base = f"{city}_{i:06d}_000019"
+        img_dir = Path(root, "leftImg8bit_trainvaltest/leftImg8bit", split,
+                       city)
+        msk_dir = Path(root, "gtFine_trainvaltest/gtFine", split, city)
+        img_dir.mkdir(parents=True, exist_ok=True)
+        msk_dir.mkdir(parents=True, exist_ok=True)
+        Image.fromarray(image).save(img_dir / f"{base}_leftImg8bit.png",
+                                    compress_level=1)
+        Image.fromarray(ids).save(msk_dir / f"{base}_gtFine_labelIds.png",
+                                  compress_level=1)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, jobs))
+
+
+def _condition(model, seed: int = 0) -> None:
+    """Seeded weights that keep a tiny train-mode net well conditioned
+    (convs at 1/sqrt(fan_in), random BN affine and running statistics), so
+    its gradients are not dominated by f32 rounding."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.normal_(0.0, m.weight[0].numel() ** -0.5,
+                                 generator=gen)
+                if m.bias is not None:
+                    m.bias.normal_(0.0, 0.1, generator=gen)
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.normal_(1.0, 0.2, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.copy_(0.7 + 0.3 * torch.randn(
+                    m.running_var.shape, generator=gen).abs())
+
+
+def _stats(model) -> dict:
+    return {k: v.detach().double().cpu() for k, v in
+            model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def _tree_l1(got: dict, want: dict) -> float:
+    num = sum(float((got[k].double().cpu() - want[k].double().cpu()).abs()
+                    .sum()) for k in want)
+    return num / sum(float(want[k].double().abs().sum()) for k in want)
+
+
+def _train_step_of(cfg, model):
+    """The Trainer's step (make_train_step over get_loss and
+    make_optimizer of ``cfg``): -> (step fn, optimizer)."""
+    from tpuseg_torch.losses import get_loss
+    from tpuseg_torch.train.optim import make_optimizer
+    from tpuseg_torch.train.step import make_train_step
+
+    lc = cfg.loss
+    criterion, _ = get_loss(cfg)
+    opt, schedule = make_optimizer(cfg, model.parameters(), 10)
+    step = make_train_step(criterion, schedule, ocr_alpha=lc.ocr_alpha,
+                           aux_rmi=lc.ocr_aux_rmi,
+                           supervised_mscale_wt=lc.supervised_mscale_wt,
+                           align_corners=cfg.model.align_corners)
+    return step, opt
+
+
+def phase_train_parity() -> None:
+    """One train step of the tiny topology in f32 (TF32 off) from one
+    seeded weight draw and batch, on the card and on the CPU in this
+    process: RMI with cuDNN off (the port's ops on the card, convs as
+    cuBLAS f32 GEMMs), CE with cuDNN on, and RMI on the card with every
+    stage remat'd vs not. RMI with cuDNN on is printed, not held: cuDNN's
+    f32 conv algorithms differ from the CPU's by ~1e-6, which the RMI
+    backward through its nearly singular 9x9 factors amplifies (measured
+    3.9e-2 on an H100, vs 1.4e-4 with cuDNN off; CE with cuDNN on 2.5e-5)."""
+    from tpuseg_torch.config import make_config
+    from tpuseg_torch.models import get_model
+
+    sets = {"model.arch": "ocrnet.HRNet_Mscale_Tiny",
+            "model.compute_dtype": "float32", "model.n_scales": (),
+            "model.ocr.dropout": 0.0, "model.remat": False,
+            "loss.supervised_mscale_wt": 0.05, "optim.lr": 5e-4}
+    base = get_model(make_config(sets))
+    _condition(base)
+    rng = np.random.RandomState(3)
+    image = rng.randint(0, 256, (2, 64, 128, 3)).astype(np.uint8)
+    label = rng.randint(0, 19, (2, 2, 4)).astype(np.uint8).repeat(
+        32, 1).repeat(32, 2)
+    label[:, :4] = 255
+
+    def one_step(device, loss_type, remat=False, cudnn=True):
+        cfg = make_config({**sets, "loss.loss_type": loss_type,
+                           "model.remat": remat})
+        model = get_model(cfg)
+        model.load_state_dict(base.state_dict())
+        model = model.to(device, memory_format=torch.channels_last).train()
+        step, opt = _train_step_of(cfg, model)
+        batch = {"image": torch.from_numpy(image).to(device),
+                 "label": torch.from_numpy(label).to(device)}
+        # cudnn.flags() would also reset allow_tf32 (to True)
+        with (contextlib.nullcontext() if cudnn else
+              torch.backends.cudnn.flags(enabled=False, allow_tf32=False)):
+            loss = float(step(model, opt, batch, 0)["loss"])
+        grads = {n: p.grad.detach().double().cpu()
+                 for n, p in model.named_parameters()}
+        return loss, grads, _stats(model)
+
+    def gaps(got, want):
+        return {"loss_rel": abs(got[0] - want[0]) / abs(want[0]),
+                "grad_l1": _tree_l1(got[1], want[1]),
+                "stats_l1": _tree_l1(got[2], want[2])}
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rows = {}
+        for crit in ("rmi", "ce"):
+            cpu = one_step("cpu", crit)
+            for cudnn in (False, True):
+                rows[(crit, cudnn)] = (gaps(one_step("cuda", crit,
+                                                     cudnn=cudnn), cpu), cpu)
+        gpu = one_step("cuda", "rmi")
+        remat = one_step("cuda", "rmi", remat=True)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    held = {("rmi", False), ("ce", True)}
+    bad = []
+    for (crit, cudnn), (got, cpu) in rows.items():
+        hold = (crit, cudnn) in held
+        log(f"[train-parity] tiny HRNet_Mscale f32, TF32 off, batch 2 x "
+            f"64x128, {crit}, cuDNN {'on' if cudnn else 'off'}, cuda vs cpu "
+            f"(cpu loss {cpu[0]:.6f}): " + ", ".join(
+                f"{k} {v:.3e}" + (f" (bound {PARITY_TOL[k]})" if hold else "")
+                for k, v in got.items()) + ("" if hold else
+                                            " (printed, not held)"))
+        if hold:
+            bad += [f"{crit} {k}" for k, v in got.items()
+                    if not v <= PARITY_TOL[k]]
+    got = {"remat_loss_rel": abs(remat[0] - gpu[0]) / abs(gpu[0]),
+           "remat_stats_l1": _tree_l1(remat[2], gpu[2])}
+    log("[train-parity] rmi on cuda, remat of stages 1-4 vs none: "
+        + ", ".join(f"{k} {v:.3e} (bound {PARITY_TOL[k]})"
+                    for k, v in got.items()))
+    bad += [k for k, v in got.items() if not v <= PARITY_TOL[k]]
+    if bad:
+        raise AssertionError(f"[train-parity] out of bounds: {bad}")
+
+
+def _spy_validation(recorded: list):
+    """Wrap each EvalRunner's forward so that every validation image leaves
+    a record (runner, argmax, the fused logits' std) on the device; returns
+    the undo."""
+    from tpuseg_torch.evaluation import inference
+
+    orig = inference.EvalRunner.__init__
+
+    def init(self, *args, **kw):
+        orig(self, *args, **kw)
+        forward = self.forward
+
+        def spy(*a, **k):
+            out = forward(*a, **k)
+            recorded.append((self, out[1], out[0].float().std()))
+            return out
+
+        self.forward = spy
+
+    inference.EvalRunner.__init__ = init
+    return lambda: setattr(inference.EvalRunner, "__init__", orig)
+
+
+def _spy_packed_weights(counts: dict):
+    """Wrap Bottleneck._folded so that every packed parameter block the
+    fused kernel is given is compared with a fresh fold + pack of the
+    block's weights at that moment (a stale cache after optimizer.step()
+    would differ); returns the undo."""
+    from tpuseg_torch.models.hrnet import Bottleneck
+
+    orig = Bottleneck._folded
+
+    def spy(self):
+        packed = orig(self)
+        cached = self._folded_cache
+        self._folded_cache = None
+        fresh = orig(self)
+        self._folded_cache = cached
+        counts["launches"] += 1
+        counts["stale"] += not all(
+            (a is None and b is None) or torch.equal(a, b)
+            for a, b in zip((*packed.weights, packed.blob),
+                            (*fresh.weights, fresh.blob)))
+        return packed
+
+    Bottleneck._folded = spy
+    return lambda: setattr(Bottleneck, "_folded", orig)
+
+
+def _kernels_at_trained_inputs(model, image) -> None:
+    """Each kernel vs its plain version at the inputs a trained model gives
+    it on one image at the three eval scales (kernels off while the inputs
+    are captured). Raises past the bounds."""
+    from tpuseg_torch.kernels import bottleneck_fused as bk
+    from tpuseg_torch.kernels import ocr_attention as ak
+    from tpuseg_torch.models.hrnet import Bottleneck
+    from tpuseg_torch.models.ocr import ObjectAttention, _nhwc_flat
+
+    _set_kernels(model, False)
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod, args)))
+        for m in model.modules()
+        if isinstance(m, ObjectAttention) or (
+            isinstance(m, Bottleneck) and m.downsample is None
+            and bk.supports(image.device, 4 * m.planes, m.planes))]
+    try:
+        with torch.inference_mode():
+            model(image)
+    finally:
+        for h in hooks:
+            h.remove()
+    worst = {"bottleneck_fused": 0.0, "ocr_attention": 0.0}
+    unfused = 0.0  # the model's unfused bf16 block vs the same reference
+    try:
+        with torch.inference_mode():
+            for mod, args in seen:
+                if isinstance(mod, Bottleneck):
+                    x = args[0].permute(0, 2, 3, 1).contiguous()
+                    packed = mod._folded()
+                    got = bk.fused_bottleneck_packed(x, packed)
+                    want = bk.bottleneck_reference(x, *packed.weights)
+                    name = "bottleneck_fused"
+                    unfused = max(unfused, compare(
+                        mod(args[0]).permute(0, 2, 3, 1), want)[1])
+                else:
+                    x, proxy = args
+                    proxy_img = proxy.permute(0, 2, 1)[..., None]
+                    q = _nhwc_flat(mod.f_pixel(x)).contiguous()
+                    key = _nhwc_flat(mod.f_object(proxy_img)).contiguous()
+                    val = _nhwc_flat(mod.f_down(proxy_img)).contiguous()
+                    got = ak.fused_object_attention(q, key, val)
+                    want = ak.object_attention_reference(q, key, val)
+                    name = "ocr_attention"
+                worst[name] = max(worst[name], compare(got, want)[1])
+    finally:
+        _set_kernels(model, True)
+    log(f"[train] kernel vs plain version at the trained model's inputs "
+        f"(one val image, 3 scales, {len(seen)} calls): worst l1_rel "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f" (bound < {BNECK_L1_TOL}); the unfused bf16 block vs the same "
+        f"plain version {unfused:.3e} (not held)")
+    if len(seen) != 12 or max(worst.values()) >= BNECK_L1_TOL:
+        raise AssertionError(f"kernels at trained inputs: {worst}, "
+                             f"{len(seen)} calls")
+
+
+def phase_train(card_info: str) -> dict:
+    """``train_cityscapes.yaml`` at full width (W48 HRNet_Mscale, two-scale
+    1024x2048 fwd+bwd in bf16, RMI + aux + mscale CE, SGD + poly, remat of
+    stages 1-3, the uint8 wire) through the CLI's code, bs 1, two epochs of
+    10 steps over a seeded Cityscapes tree, each epoch validated over 5
+    images at three scales with both kernels on. Held: finite losses,
+    weights moved, the checkpoint read back, every packed bottleneck block
+    fresh after the optimizer steps, each kernel vs its plain version at
+    the trained model's inputs, the launch counts. Returns each kernel's
+    launches in the two validations."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from tpuseg_torch.cli.main import load_config, main as cli_main
+    from tpuseg_torch.config import eval_model_config
+    from tpuseg_torch.data.setup import setup_data
+    from tpuseg_torch.kernels import bottleneck_fused as bk
+    from tpuseg_torch.kernels import ocr_attention as ak
+    from tpuseg_torch.models import get_model
+    from tpuseg_torch.ops import device_normalize
+    from tpuseg_torch.train.checkpoint import CheckpointManager
+
+    out_dir = Path("chiprun_out/train")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        _write_fake_cityscapes(root)
+        log(f"[train] wrote {TRAIN_IMAGES} train + {VAL_IMAGES} val "
+            f"1024x2048 scenes in {time.perf_counter() - t0:.1f} s")
+        # checkpoints (~0.6 GB each at W48) stay out of chiprun_out
+        logdir = str(Path(root, "logs"))
+        sets = ["train.batch_size=1", "train.test_mode=true",
+                "train.log_every=1", "model.use_pallas=true",
+                "model.fused_stage1=true",
+                f"dataset.cityscapes_dir={root}",
+                f"dataset.centroid_root={Path(root, 'centroids')}"]
+        argv = ["train", "--config", TRAIN_RECIPE, "--logdir", logdir]
+        for item in sets:
+            argv += ["--set", item]
+
+        recorded: list = []
+        undo = _spy_validation(recorded)
+        stale = {"launches": 0, "stale": 0}
+        undo_pack = _spy_packed_weights(stale)
+        tee = _Tee(sys.stdout)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ak.LAUNCHES = bk.LAUNCHES = 0
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(tee):
+                rc = cli_main(argv)
+        finally:
+            undo()
+            undo_pack()
+        wall = time.perf_counter() - t0
+        launches = {"ocr_attention": ak.LAUNCHES,
+                    "bottleneck_fused": bk.LAUNCHES}
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        for name in ("log.txt", "metrics.jsonl"):
+            shutil.copy(Path(logdir, name), out_dir / name)
+        if rc != 0:
+            raise AssertionError(f"tpuseg_torch.cli train returned {rc}")
+        text = tee.buf.getvalue()
+        cfg = load_config(TRAIN_RECIPE, sets)
+
+        lines = [json.loads(x) for x in
+                 Path(logdir, "metrics.jsonl").read_text().splitlines()]
+        losses = [x["loss"] for x in lines if x["phase"] == "train"]
+        log(f"[train] loss at steps 1..{len(losses)}: "
+            + " ".join(f"{v:.4f}" for v in losses))
+        if len(losses) != 20 or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"train losses {losses}")
+        for m in re.finditer(r"epoch (\d+): (\d+) steps on \S+, steps "
+                             r"2-\d+: ([\d.]+) s/step, ([\d.]+) img/s; host "
+                             r"data wait ([\d.]+) ms/step", text):
+            log(f"[train] epoch {m.group(1)}: steps 2-{m.group(2)} "
+                f"{m.group(3)} s/step, {m.group(4)} img/s, host data wait "
+                f"{m.group(5)} ms/step (W48 two-scale 1024x2048 bf16, bs "
+                f"1, remat 1-3, {card_info})")
+        for m in re.finditer(r"validate: (\d+) images on \S+ in ([\d.]+) "
+                             r"s, ([\d.]+) s/image", text):
+            log(f"[train] validation: {m.group(1)} images, {m.group(3)} "
+                f"s/image (3 scales, kernels on, {card_info})")
+        log(f"[train] whole CLI run {wall:.1f} s, peak device memory "
+            f"{mem:.2f} GiB, on {card_info}")
+
+        # the trained module: moved from its seeded init, and checkpointed
+        runner = recorded[-1][0]
+        model = runner.model
+        trained = {k: v.detach().cpu() for k, v in
+                   model.state_dict().items()}
+        init = get_model(eval_model_config(cfg),
+                         seed=cfg.train.seed).state_dict()
+        moved = {kind: [not torch.equal(trained[k], init[k])
+                        for k in init if k.endswith(suffix)]
+                 for kind, suffix in (("parameters", ("weight", "bias")),
+                                      ("BN running stats",
+                                       ("running_mean", "running_var")))}
+        log("[train] moved from the init: " + ", ".join(
+            f"{sum(v)}/{len(v)} {k}" for k, v in moved.items()))
+        if any(sum(v) < 0.99 * len(v) for v in moved.values()):
+            raise AssertionError("training left the weights in place")
+        ckpt = CheckpointManager(str(Path(logdir, cfg.train.checkpoint_dir)))
+        step = ckpt.latest_step()
+        saved = ckpt.restore()["model"]
+        same = all(torch.equal(saved[k], v) for k, v in trained.items())
+        log(f"[train] checkpoint step {step} restored, equal to the "
+            f"trained module: {same}")
+        if step != 20 or not same:
+            raise AssertionError(f"checkpoint step {step}, equal {same}")
+
+        # the packed-weight cache after 10 optimizer steps: every block
+        # the kernel was given vs a fresh fold + pack of that moment
+        log(f"[train] packed bottleneck weights checked against a fresh "
+            f"fold + pack at every launch of the validations: "
+            f"{stale['launches']} launches, {stale['stale']} stale")
+        if stale["stale"] or stale["launches"] != 9 * 2 * VAL_IMAGES:
+            raise AssertionError(f"stale packed weights: {stale}")
+
+        # held: each kernel vs its plain version at the inputs the trained
+        # model gives it. Printed: the last validation's argmax (kernels
+        # on) vs the same weights with kernels off. 20 steps leave a net of
+        # so high a gain that the fused block's f32 folded-BN math and the
+        # unfused block's bf16 conv -> BN passes flip some argmaxes; the
+        # spread between runs is in PERF.md
+        _, val_loader, _ = setup_data(cfg, eval_mode="val",
+                                      seed=cfg.train.seed)
+        batches = [b for _, b in zip(range(VAL_IMAGES), val_loader)]
+        on = recorded[-VAL_IMAGES:]
+        model.eval()
+        _set_kernels(model, False)
+        for batch in batches:
+            runner.run_batch(batch, need_assets=False, acc=runner.init_acc())
+        off = recorded[-VAL_IMAGES:]
+        _kernels_at_trained_inputs(model, device_normalize(
+            torch.from_numpy(batches[0]["image"]).cuda()))
+        model.train()
+        agree = float(torch.stack([(a[1] == b[1]).float().mean()
+                                   for a, b in zip(on, off)]).mean())
+        std = float(torch.stack([b[2] for b in off]).mean())
+        log(f"[train] the last validation (kernels on) vs the same weights "
+            f"with kernels off: argmax agreement {agree:.5f} over "
+            f"{VAL_IMAGES} images (not held; logit std {std:.1f})")
+
+    # the validations launched both kernels on every image
+    want = {"ocr_attention": 3 * 2 * VAL_IMAGES,
+            "bottleneck_fused": 9 * 2 * VAL_IMAGES}
+    log(f"[train] validation launches {launches} (want {want}: 3 attention "
+        f"and 9 bottleneck calls an image, 2 validations)")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    return launches
+
+
+def phase_train_remat(card_info: str) -> None:
+    """W48 bf16 1024x2048, the recipe's step, REMAT_STEPS steps from one
+    weight draw on one seeded scene with remat_stages [1, 2, 3] and then
+    with remat off: the first step's loss and BN running statistics held,
+    peak memory and s/step printed. The remat side's model then gives
+    [train-profile] one more step."""
+    from tpuseg_torch.cli.main import load_config
+    from tpuseg_torch.models import get_model
+
+    image, _, tid = _fake_scene(7)
+    label = tid.copy()
+    label[:64] = 255
+    batch = {"image": torch.from_numpy(image[None]).cuda(),
+             "label": torch.from_numpy(label[None]).cuda()}
+    base = get_model(load_config(TRAIN_RECIPE, [])).state_dict()
+    sides = {}
+    for name, sets in (("remat 1-3", []), ("no remat", ["model.remat=false"])):
+        cfg = load_config(TRAIN_RECIPE, ["train.batch_size=1"] + sets)
+        model = get_model(cfg)
+        model.load_state_dict(base)
+        model = model.cuda().to(memory_format=torch.channels_last).train()
+        step, opt = _train_step_of(cfg, model)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.manual_seed(1)  # the same dropout masks on both sides
+        times, first = [], None
+        for i in range(REMAT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(step(model, opt, batch, i)["loss"])
+            times.append(time.perf_counter() - t0)
+            if first is None:
+                first = (loss, _stats(model))
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        sides[name] = first
+        log(f"[train-remat] {name}: step 1 loss {first[0]:.4f}, peak "
+            f"device memory {mem:.2f} GiB, steps 2-{REMAT_STEPS} "
+            f"{np.mean(times[1:]):.4f} s/step (step 1 {times[0]:.3f} s) "
+            f"(W48 two-scale 1024x2048 bf16, bs 1, {card_info})")
+        if name == "remat 1-3":
+            _profile(lambda: step(model, opt, batch, REMAT_STEPS), card_info,
+                     what="one train step (remat 1-3)",
+                     out_name="train_profile_top.txt", tag="train-profile",
+                     inference=False)
+        del model, opt, step
+    (l_on, s_on), (l_off, s_off) = sides.values()
+    got = {"loss_rel": abs(l_on - l_off) / abs(l_off),
+           "stats_l1": _tree_l1(s_on, s_off)}
+    log("[train-remat] remat 1-3 vs no remat after step 1: " + ", ".join(
+        f"{k} {v:.3e} (bound {REMAT_TOL[k]})" for k, v in got.items()))
+    bad = [k for k, v in got.items() if not v <= REMAT_TOL[k]]
+    if bad:
+        raise AssertionError(f"[train-remat] out of bounds: {bad}")
 
 
 def main() -> int:
@@ -551,6 +1079,11 @@ def main() -> int:
     for r in records:
         r["launches"] = launches[r["name"]]
     phase_on_off(card_info)
+    phase_train_parity()
+    train_launches = phase_train(card_info)
+    for r in records:
+        r["train_launches"] = train_launches[r["name"]]
+    phase_train_remat(card_info)
     jax_mods = sorted({m.split(".")[0] for m in sys.modules}
                       & {"jax", "jaxlib", "flax", "optax", "orbax"})
     ref_mods = sorted(m for m in sys.modules if m.split(".")[0] == "tpuseg")

@@ -61,7 +61,7 @@ def test_eval_runner_matches_tpuseg(models, hw, pad):
                    pad_multiple=pad, donate_acc=False)
     pr = EvalRunner(port, 19, criterion=functools.partial(cross_entropy,
                                                           ignore_label=255),
-                    pad_multiple=pad)
+                    pad_multiple=pad, device="cpu")
     jout, jhist, jloss = jr.run_batch(v, batch)
     pout, phist, ploss = pr.run_batch(batch)
 

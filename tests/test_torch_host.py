@@ -51,10 +51,10 @@ def test_load_config_matches_tpuseg(recipe, sets):
 
 @pytest.fixture(scope="module")
 def fake_cityscapes(tmp_path_factory):
-    """leftImg8bit/gtFine tree: 1 train city x 1 image, 1 val city x 3."""
+    """leftImg8bit/gtFine tree: 1 train city x 3 images, 1 val city x 3."""
     root = tmp_path_factory.mktemp("cs")
     rng = np.random.RandomState(0)
-    for split, city, n in [("train", "aachen", 1), ("val", "lindau", 3)]:
+    for split, city, n in [("train", "aachen", 3), ("val", "lindau", 3)]:
         img_dir = root / "leftImg8bit_trainvaltest/leftImg8bit" / split / city
         msk_dir = root / "gtFine_trainvaltest/gtFine" / split / city
         img_dir.mkdir(parents=True, exist_ok=True)
@@ -94,6 +94,41 @@ def test_val_batches_match_tpuseg(dataset, bs, fake_cityscapes, tmp_path):
                                         else 3) // bs)
     for g, w in zip(got, want):
         assert set(g) == set(w)
+        for k in w:
+            np.testing.assert_array_equal(np.asarray(g[k]), np.asarray(w[k]),
+                                          err_msg=k)
+
+
+def _train_batches(setup, load, sets, epochs=2):
+    """Seeded train batches of ``epochs`` epochs, each epoch re-mixed as
+    the Trainer re-mixes it."""
+    cfg = load(None, sets)
+    loader, _, train_set = setup(cfg, seed=cfg.train.seed)
+    out = []
+    for epoch in range(epochs):
+        train_set.build_epoch(epoch)
+        loader.set_epoch(epoch)
+        out += list(loader)
+    return out
+
+
+@pytest.mark.parametrize("uint8", [True, False], ids=["uint8", "float32"])
+def test_train_batches_match_tpuseg(uint8, fake_cityscapes, tmp_path):
+    """Scale, crop, flip, colour jitter and class-uniform sampling at 0.5
+    from the same seed give the same train batches."""
+    sets = ["dataset.name=cityscapes",
+            f"dataset.cityscapes_dir={fake_cityscapes}",
+            "dataset.crop_size=[64,128]", "dataset.class_uniform_tile=64",
+            "dataset.class_uniform_pct=0.5", "train.batch_size=1",
+            "dataset.num_workers=2", f"dataset.transfer_uint8={uint8}"]
+    got = _train_batches(setup_data, load_config, sets + [
+        f"dataset.centroid_root={tmp_path / 'port'}"])
+    want = _train_batches(jax_setup_data, jax_load_config, sets + [
+        f"dataset.centroid_root={tmp_path / 'jax'}"])
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        assert g["image"].dtype == (np.uint8 if uint8 else np.float32)
         for k in w:
             np.testing.assert_array_equal(np.asarray(g[k]), np.asarray(w[k]),
                                           err_msg=k)

@@ -1,14 +1,17 @@
-"""CLI: ``python -m tpuseg_torch.cli eval --config <recipe> --set k=v ...``.
+"""CLI: ``python -m tpuseg_torch.cli train|eval --config <recipe> --set
+k=v ...``.
 
 Reads the YAML recipes shipped in ``tpuseg_torch/cli/recipes/`` (copies of
 ``tpuseg``'s) with ``--set`` overrides, as ``tpuseg.cli.main.load_config``
-does. Only ``eval`` is ported; the other ``tpuseg`` subcommands follow the
-ROADMAP queue.
+does. ``train`` and ``eval`` are ported; ``tpuseg``'s other subcommands
+follow the ROADMAP queue. Both run on the card unless ``--device`` names
+another device.
 """
 from __future__ import annotations
 
 import argparse
 import ast
+import dataclasses
 import sys
 
 import yaml
@@ -51,23 +54,34 @@ def load_config(config_path: str | None, sets: list[str]):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="tpuseg_torch")
-    parser.add_argument("command", choices=["eval"])
+    parser.add_argument("command", choices=["train", "eval"])
     parser.add_argument("--config", default=None, help="YAML recipe")
     parser.add_argument("--set", dest="sets", action="append", default=[],
                         metavar="KEY=VALUE", help="dotted config override")
     parser.add_argument("--logdir", default="logs")
     parser.add_argument("--checkpoint", default=None,
-                        help="reference-format torch state dict (.pth)")
+                        help="reference-format torch state dict (.pth): "
+                             "the weights for eval, a warm-start snapshot "
+                             "for train (maps to train.snapshot)")
     parser.add_argument("--eval-mode", default="val", choices=["val", "trn"])
     parser.add_argument("--device", default="cuda",
                         help="torch device; 'cuda' raises when absent")
     args = parser.parse_args(argv)
 
     cfg = load_config(args.config, args.sets)
-    from tpuseg_torch.train.loop import evaluate_only
+    if args.command == "train":
+        from tpuseg_torch.train.loop import Trainer
 
-    evaluate_only(cfg, logdir=args.logdir, eval_mode=args.eval_mode,
-                  checkpoint=args.checkpoint, device=args.device)
+        if args.checkpoint:
+            # warm start (reference --snapshot, train.py:343-376)
+            cfg = cfg.replace(train=dataclasses.replace(
+                cfg.train, snapshot=args.checkpoint))
+        Trainer(cfg, logdir=args.logdir, device=args.device).fit()
+    else:
+        from tpuseg_torch.train.loop import evaluate_only
+
+        evaluate_only(cfg, logdir=args.logdir, eval_mode=args.eval_mode,
+                      checkpoint=args.checkpoint, device=args.device)
     return 0
 
 

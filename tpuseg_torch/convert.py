@@ -73,4 +73,10 @@ def load_reference_checkpoint(model: torch.nn.Module, path: str) -> None:
     ``last_layer`` -> ``aux_head``)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     state = ckpt.get("state_dict", ckpt)
-    model.load_state_dict(_converter()._strip_prefixes(state), strict=True)
+    model.load_state_dict(strip_reference_prefixes(state), strict=True)
+
+
+def strip_reference_prefixes(state: dict) -> dict:
+    """The reference's own state-dict cleanups: a leading ``module.`` or
+    ``model.``, and ``last_layer`` -> ``aux_head``."""
+    return _converter()._strip_prefixes(state)

@@ -105,8 +105,9 @@ def make_eval_forward(model, num_classes: int, scales=(1.0,),
 
 
 class EvalRunner:
-    """Drives eval batches through ``make_eval_forward`` on ``device``
-    (tpuseg ``EvalRunner``; reference: train.py:536-597).
+    """Drives eval batches through ``make_eval_forward`` on ``device`` (the
+    card unless the caller names another; tpuseg ``EvalRunner``;
+    reference: train.py:536-597).
 
     ``pad_multiple`` buckets variable-size images by padding H/W up to a
     multiple on the host (labels padded with ignore) and cropping outputs
@@ -118,7 +119,8 @@ class EvalRunner:
                  is_mscale: bool = True, ignore_label: int = 255,
                  criterion: Optional[Callable] = None,
                  pad_multiple: Optional[int] = None,
-                 mean=IMAGENET_MEAN, std=IMAGENET_STD, device="cpu"):
+                 mean=IMAGENET_MEAN, std=IMAGENET_STD, device="cuda"):
+        self.model = model
         self.num_classes = num_classes
         self.ignore_label = ignore_label
         self.pad_multiple = pad_multiple

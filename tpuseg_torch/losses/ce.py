@@ -1,5 +1,5 @@
-"""Cross-entropy (port of ``tpuseg/losses/ce.py:8-29``; reference
-loss/utils.py:121-134). Training losses wait for the training slice."""
+"""Cross-entropy losses (port of ``tpuseg/losses/ce.py``; reference
+loss/utils.py:70-134). Logits are NHWC, labels NHW, as in ``tpuseg``."""
 from __future__ import annotations
 
 import torch
@@ -18,3 +18,53 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     nll = -logp.gather(-1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
     return nll.sum() / valid.sum().clamp_min(1)
+
+
+def _class_weights(labels: torch.Tensor, num_classes: int,
+                   upper_bound: float, norm: bool) -> torch.Tensor:
+    """Class weights from each image's label histogram (reference
+    calculate_weights: loss/utils.py:87-100). labels (B, H, W) long ->
+    (B, C); labels outside [0, C) are left out of the histogram."""
+    b = labels.shape[0]
+    valid = (labels >= 0) & (labels < num_classes)
+    idx = torch.where(valid, labels, torch.full_like(labels, num_classes))
+    # one bincount over the batch: image i's bins start at i * (C + 1)
+    offset = torch.arange(b, device=labels.device)[:, None] * (
+        num_classes + 1)
+    bins = torch.bincount((idx.reshape(b, -1) + offset).reshape(-1),
+                          minlength=b * (num_classes + 1))
+    bins = bins.reshape(b, num_classes + 1)[:, :num_classes].float()
+    hist_norm = bins / bins.sum(dim=1, keepdim=True).clamp_min(1.0)
+    present = (bins != 0).float()
+    if norm:
+        return present * upper_bound / hist_norm.clamp_min(1e-12) + 1.0
+    return present * upper_bound * (1.0 - hist_norm) + 1.0
+
+
+def image_weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 ignore_label: int = 255,
+                                 upper_bound: float = 1.0, norm: bool = False,
+                                 batch_weighting: bool = False
+                                 ) -> torch.Tensor:
+    """Sum over images of each image's class-weighted mean NLL (reference
+    ImageBasedCrossEntropyLoss2d: loss/utils.py:70-118), with torch
+    ``NLLLoss(weight)``'s normalisation by the summed pixel weights. The
+    weights come from each image's own histogram, or with
+    ``batch_weighting`` from the whole batch's (loss/utils.py:104-106)."""
+    num_classes = logits.shape[-1]
+    labels = labels.long()
+    b = labels.shape[0]
+    valid = (labels >= 0) & (labels < num_classes)
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    if batch_weighting:
+        weights = _class_weights(labels.reshape(1, -1), num_classes,
+                                 upper_bound, norm).expand(b, -1)
+    else:
+        weights = _class_weights(labels, num_classes, upper_bound, norm)
+    pix_w = weights.gather(1, safe.reshape(b, -1)).reshape(safe.shape)
+    pix_w = torch.where(valid, pix_w, torch.zeros_like(pix_w))
+    per_image = (nll * pix_w).sum(dim=(1, 2)) / pix_w.sum(
+        dim=(1, 2)).clamp_min(1e-8)
+    return per_image.sum()

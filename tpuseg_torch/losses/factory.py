@@ -1,13 +1,50 @@
-"""Loss factory, eval side (port of ``tpuseg/losses/factory.py:53``): the
-val criterion is always plain CE, as in the reference (loss/utils.py:40-67).
-The training criteria (RMI, image-weighted CE, relaxed) wait for the
-training slice (ROADMAP Queue 1 item 8)."""
+"""Loss factory (port of ``tpuseg/losses/factory.py:19-54``; reference
+get_loss: loss/utils.py:40-67).
+
+``criterion(logits, labels, do_rmi=...)`` callables over NHWC logits and NHW
+labels; ``do_rmi`` lets the aux loss skip the RMI term (reference:
+ocrnet.py:300-308). The val criterion is always plain CE, as in the
+reference.
+"""
 from __future__ import annotations
 
 from functools import partial
 
-from tpuseg_torch.losses.ce import cross_entropy
+from tpuseg_torch.losses.ce import cross_entropy, image_weighted_cross_entropy
+from tpuseg_torch.losses.rmi import rmi_loss
+
+
+def get_loss(cfg):
+    """-> (train criterion, val criterion)."""
+    lc = cfg.loss
+    ignore = cfg.dataset.ignore_label
+    n = cfg.dataset.num_classes
+
+    if lc.loss_type == "rmi":
+        def criterion(logits, labels, do_rmi=True):
+            return rmi_loss(logits, labels, num_classes=n,
+                            ignore_label=ignore, radius=lc.rmi_radius,
+                            pool_size=lc.rmi_pool_size, do_rmi=do_rmi)
+    elif lc.loss_type == "img_wt":
+        def criterion(logits, labels, do_rmi=None):
+            return image_weighted_cross_entropy(
+                logits, labels, ignore_label=ignore,
+                upper_bound=lc.img_wt_bound,
+                batch_weighting=lc.batch_weighting)
+    elif lc.loss_type == "ce":
+        def criterion(logits, labels, do_rmi=None):
+            return cross_entropy(logits, labels, ignore_label=ignore)
+    elif lc.loss_type == "relaxed":
+        raise NotImplementedError(
+            "loss.loss_type=relaxed (label relaxation, tpuseg/losses/"
+            "relaxed.py) is not ported to tpuseg_torch yet (ROADMAP.md "
+            "Queue 1 item 12)")
+    else:
+        raise ValueError(f"unknown loss_type {lc.loss_type}")
+
+    return criterion, get_val_loss(cfg)
 
 
 def get_val_loss(cfg):
+    """The val criterion alone: CE with the dataset's ignore label."""
     return partial(cross_entropy, ignore_label=cfg.dataset.ignore_label)

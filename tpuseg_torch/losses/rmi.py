@@ -1,0 +1,135 @@
+"""Region Mutual Information loss in float32.
+
+Port of ``tpuseg/losses/rmi.py:38-181`` (reference: loss/rmi.py,
+loss/rmi_utils.py; RMI paper arXiv:1910.12037), with ``tpuseg``'s f32
+formulation as it is:
+
+  loss = 0.5 * BCE(logits, onehot(valid labels))
+       + 0.5 * sum_c mean_b [ 0.5 * logdet(Sigma_y|p) / half_d ]
+
+over d = r*r = 9 dimensional pixel-neighbourhood vectors after a 4x4
+average-pool downsample, per class and image. The reference runs the
+covariance / Cholesky chain in float64; ``tpuseg`` reformulated it for f32
+(covariances at unit scale with the log-det compensated by ``d*log(N)``,
+jitter floors ``a_pr = max(pos_alpha/N, 1e-4)`` and ``a_va = pos_alpha/N``,
+a rescue refactorisation of matrices that are not positive definite), and
+the port computes the same f32 result. A float64 variant would compute
+something ``tpuseg`` does not (ROADMAP Queue 3).
+
+``torch.linalg.cholesky`` raises on a matrix that is not positive definite
+where ``jnp.linalg.cholesky`` returns NaN, so the factorisations use
+``cholesky_ex`` and flag a matrix by its ``info`` or a non-finite factor.
+Nothing here reads a device value on the host.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from tpuseg_torch.ops.resize import avg_pool2d, max_pool2d
+
+_CLIP_MIN = 1e-6      # post-sigmoid clip (reference: rmi.py:11)
+_POS_ALPHA = 5e-4     # diagonal jitter for PD-ness (reference: rmi.py:12)
+
+
+def _neighborhood_vectors(x: torch.Tensor, radius: int) -> torch.Tensor:
+    """The r*r shifted views (reference map_get_pairs: rmi_utils.py:15-56).
+    x (B, C, H, W) -> (B, C, r*r, (H-r+1)*(W-r+1))."""
+    b, c, h, w = x.shape
+    nh, nw = h - radius + 1, w - radius + 1
+    v = torch.stack([x[:, :, y:y + nh, xx:xx + nw]
+                     for y in range(radius) for xx in range(radius)], dim=2)
+    return v.reshape(b, c, radius * radius, nh * nw)
+
+
+def _safe_cholesky(m: torch.Tensor, eye: torch.Tensor, jitter: float,
+                   rescue: float = 1e-2) -> torch.Tensor:
+    """Cholesky factor of ``m + jitter*I``; a matrix whose first
+    factorisation fails is refactored as ``m + rescue*I`` instead. The
+    predicate carries no gradient, and the rescued INPUT is substituted
+    before the differentiated factorisation, so no NaN reaches the
+    backward pass (``tpuseg/losses/rmi.py:59-71``)."""
+    a = m + eye * jitter
+    with torch.no_grad():
+        first, info = torch.linalg.cholesky_ex(a)
+        bad = (info > 0) | ~torch.isfinite(first).all(dim=-1).all(dim=-1)
+    a = torch.where(bad[..., None, None], m + eye * rescue, a)
+    return torch.linalg.cholesky_ex(a).L
+
+
+def _bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """Sum-reduced masked binary CE with logits (reference: rmi.py:103-114),
+    as ``max(x, 0) - x*t + log(1 + exp(-|x|))``."""
+    per = logits.clamp_min(0) - logits * targets + torch.log1p(
+        torch.exp(-logits.abs()))
+    return (per * mask[..., None]).sum()
+
+
+def rmi_loss(logits: torch.Tensor, labels: torch.Tensor,
+             num_classes: int | None = None, ignore_label: int = 255,
+             radius: int = 3, pool_size: int = 4, pool_way: str = "avg",
+             weight_lambda: float = 0.5, do_rmi: bool = True,
+             pos_alpha: float = _POS_ALPHA) -> torch.Tensor:
+    """RMI loss (reference forward_sigmoid: loss/rmi.py:82-134).
+
+    logits (B, H, W, C), labels (B, H, W) int; pixels outside [0, C) are
+    ignored. ``do_rmi=False`` returns only the BCE part (the aux loss,
+    reference: ocrnet.py:302-308)."""
+    num_classes = num_classes or logits.shape[-1]
+    half_d = radius * radius
+    logits = logits.float()
+    labels = labels.long()
+
+    valid = (labels >= 0) & (labels < num_classes)
+    validf = valid.float()
+    onehot = F.one_hot(torch.where(valid, labels, torch.zeros_like(labels)),
+                       num_classes).float() * validf[..., None]
+    bce = _bce_with_logits(logits, onehot, validf) / (validf.sum() + 1.0)
+    if not do_rmi:
+        return bce
+
+    probs = torch.sigmoid(logits) * validf[..., None] + _CLIP_MIN
+    # NCHW views for the pools (reference: rmi.py:148-163)
+    onehot, probs = onehot.permute(0, 3, 1, 2), probs.permute(0, 3, 1, 2)
+    if pool_size > 1:
+        pad = pool_size // 2
+        if pool_way == "avg":
+            pool = avg_pool2d
+        elif pool_way == "max":
+            pool = max_pool2d
+        else:
+            raise ValueError(pool_way)
+        onehot = pool(onehot, pool_size, pool_size, pad)
+        probs = pool(probs, pool_size, pool_size, pad)
+
+    la = _neighborhood_vectors(onehot, radius).detach()   # (B, C, d, N)
+    pr = _neighborhood_vectors(probs, radius)
+    la = la - la.mean(dim=3, keepdim=True)
+    pr = pr - pr.mean(dim=3, keepdim=True)
+
+    # unit-scale covariances: logdet(S + aI) = d*log(N) + logdet(S/N +
+    # (a/N)I); tpuseg/losses/rmi.py:139-166 derives the jitter floors
+    n = la.shape[-1]
+    inv_n = 1.0 / n
+    la_cov = la @ la.transpose(2, 3) * inv_n             # (B, C, d, d)
+    pr_cov = pr @ pr.transpose(2, 3) * inv_n
+    la_pr_cov = la @ pr.transpose(2, 3) * inv_n
+
+    eye = torch.eye(half_d, dtype=torch.float32, device=logits.device)
+    a_pr = max(pos_alpha / n, 1e-4)
+    a_va = pos_alpha / n
+    chol_pr = _safe_cholesky(pr_cov, eye, a_pr)
+    sol = torch.cholesky_solve(la_pr_cov.transpose(2, 3), chol_pr,
+                               upper=False)
+    appro_var = la_cov - la_pr_cov @ sol
+
+    chol = _safe_cholesky(appro_var, eye, a_va)
+    diag = torch.diagonal(chol, dim1=-2, dim2=-1)
+    logdet = 2.0 * torch.log(diag + 1e-8).sum(dim=-1) + half_d * math.log(n)
+
+    rmi = ((0.5 * logdet).mean(dim=0) / float(half_d)).sum()
+    # lambda_way=1 (reference: rmi.py:129-130)
+    return weight_lambda * bce + (1.0 - weight_lambda) * rmi

@@ -1,12 +1,12 @@
 """Model registry: ``cfg.model.arch`` = "module.Factory" (reference:
 network/__init__.py:45-54), resolved against this package's modules.
 
-``model.remat`` / ``model.remat_stages`` are training memory knobs with no
-effect on eval values; they are accepted and ignored until the training
-slice (ROADMAP Queue 1 item 9).
+``model.remat`` with ``model.remat_stages`` remats only the listed trunk
+stages, as ``tpuseg/models/__init__.py:20-26`` does.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 import torch
@@ -20,6 +20,9 @@ PORTED = {"ocrnet": ("HRNet", "HRNet_Mscale", "HRNet_Mscale_Tiny")}
 def get_model(cfg, seed: int = 0) -> torch.nn.Module:
     """Build ``cfg.model.arch`` on the CPU with a seeded fresh init
     (``torch.Generator(seed)``); move it with ``.to(device)``."""
+    if cfg.model.remat and cfg.model.remat_stages:
+        cfg = cfg.replace(model=dataclasses.replace(
+            cfg.model, remat=tuple(cfg.model.remat_stages)))
     module_name, fn_name = cfg.model.arch.split(".")
     if fn_name not in PORTED.get(module_name, ()):
         raise NotImplementedError(

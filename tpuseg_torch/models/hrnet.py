@@ -13,14 +13,20 @@ The module tree reproduces the reference's state-dict names: ``conv1``,
 
 ``fused_stage1`` routes the eval-mode stage-1 identity bottlenecks through
 the fused kernel (tpuseg_torch/kernels/bottleneck_fused.py).
+
+``remat`` recomputes the listed stages' activations in the backward pass
+instead of keeping them (``tpuseg/models/hrnet.py:252-308``): stage 1 per
+``Bottleneck``, stages 2-4 per ``HRModule``; transitions never.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Sequence
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from tpuseg_torch.kernels.bottleneck_fused import (
     fold_bn,
@@ -206,7 +212,7 @@ class HRModule(nn.Module):
                     row.append(nn.Sequential(*steps))
             self.fuse_layers.append(row)
 
-    def forward(self, xs):
+    def forward(self, *xs):
         ys = [branch(x) for branch, x in zip(self.branches, xs)]
         if self.fuse_layers is None:
             return ys
@@ -253,18 +259,60 @@ class Transition(nn.ModuleList):
         return out
 
 
+@contextlib.contextmanager
+def _frozen_bn_stats(module: nn.Module):
+    """Recompute context of a remat'd block: its train-mode BNs normalise
+    with the batch statistics as in the forward pass but leave their
+    running statistics as they are, so a recomputed block updates them
+    once, as flax's ``nn.remat`` does. A momentum of 0 keeps the same
+    kernel (and so the same tensors saved for backward) and writes back
+    ``1 * running + 0 * batch``, the old value exactly;
+    ``num_batches_tracked`` is restored."""
+    bns = [m for m in module.modules() if isinstance(m, nn.BatchNorm2d)]
+    saved = [(bn.momentum, bn.num_batches_tracked.clone()) for bn in bns]
+    for bn in bns:
+        bn.momentum = 0.0
+    try:
+        yield
+    finally:
+        for bn, (momentum, tracked) in zip(bns, saved):
+            bn.momentum = momentum
+            bn.num_batches_tracked.copy_(tracked)
+
+
+def remat_call(module: nn.Module, *inputs):
+    """``module(*inputs)`` with its activations recomputed in the backward
+    pass (non-reentrant ``torch.utils.checkpoint``), BN running statistics
+    updated once."""
+    return checkpoint(
+        module, *inputs, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(),
+                            _frozen_bn_stats(module)))
+
+
+def remat_stages(remat) -> tuple:
+    """``model.remat`` -> the stage numbers to remat: ``True`` is every
+    stage (1-4), a sequence only those stages, ``False`` none."""
+    if isinstance(remat, (tuple, list)):
+        return tuple(int(s) for s in remat)
+    return (1, 2, 3, 4) if remat else ()
+
+
 class HRNetV2(nn.Module):
     """Full trunk over an NCHW image. Returns ``(None, None, features)``,
     the reference trunk triple (network/hrnetv2.py:399-449). The input is
-    cast to ``dtype`` (the compute dtype) and channels_last memory."""
+    cast to ``dtype`` (the compute dtype) and channels_last memory.
+    ``remat`` (see :func:`remat_stages`) acts only in training with
+    autograd on."""
 
     def __init__(self, spec: HRNetSpec = W48_SPEC,
                  align_corners: bool = False, dtype=torch.bfloat16,
-                 fused_stage1: bool = False):
+                 fused_stage1: bool = False, remat=False):
         super().__init__()
         self.spec = spec
         self.align_corners = align_corners
         self.dtype = dtype
+        self.remat = remat_stages(remat)
         # stem (reference: hrnetv2.py:270-276)
         self.conv1 = _tconv(3, 64, 3, 2)
         self.bn1 = Norm(64)
@@ -293,10 +341,16 @@ class HRNetV2(nn.Module):
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         x = torch.relu(self.bn1(self.conv1(x)))
         x = torch.relu(self.bn2(self.conv2(x)))
-        xs = [self.layer1(x)]
+        remat = (self.remat if self.training and torch.is_grad_enabled()
+                 else ())
+        for block in self.layer1:
+            x = remat_call(block, x) if 1 in remat else block(x)
+        xs = [x]
         for t in (1, 2, 3):
             xs = getattr(self, f"transition{t}")(xs)
-            xs = getattr(self, f"stage{t + 1}")(xs)
+            for hrm in getattr(self, f"stage{t + 1}"):
+                xs = (remat_call(hrm, *xs) if t + 1 in remat
+                      else hrm(*xs))
         # final 4-branch upsample-concat (reference: hrnetv2.py:438-447)
         size = xs[0].shape[-2:]
         ups = [xs[0]] + [resize_bilinear(b, size, self.align_corners)

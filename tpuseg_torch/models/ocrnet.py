@@ -38,10 +38,11 @@ class OCRNet(nn.Module):
                  mid_channels: int = 512, key_channels: int = 256,
                  ocr_dropout: float = 0.05, align_corners: bool = False,
                  use_pallas: bool = False, fused_stage1: bool = False,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, remat=False):
         super().__init__()
         self.align_corners = align_corners
-        self.backbone = HRNetV2(spec, align_corners, dtype, fused_stage1)
+        self.backbone = HRNetV2(spec, align_corners, dtype, fused_stage1,
+                                remat)
         self.ocr = OCRBlock(spec.high_level_ch, num_classes, mid_channels,
                             key_channels, use_pallas, ocr_dropout)
 
@@ -60,7 +61,8 @@ class MscaleOCR(nn.Module):
     """Hierarchical multi-scale attention over HRNet-OCR
     (reference: network/ocrnet.py:158-334).
 
-    Train: fused 0.5x + 1.0x two-scale forward. Eval: chained n-scale
+    Train: fused 0.5x + 1.0x two-scale forward, whatever ``n_scales`` is,
+    so one module serves training and validation. Eval: chained n-scale
     fusion over ``n_scales`` (two-scale when ``n_scales`` is empty)."""
 
     def __init__(self, num_classes: int, spec: HRNetSpec = W48_SPEC,
@@ -71,13 +73,15 @@ class MscaleOCR(nn.Module):
                  attn_bot_ch: int = 256, attn_inner_3x3: bool = True,
                  attn_dropout: bool = False, attn_old_arch: bool = False,
                  use_pallas: bool = False, fused_stage1: bool = False,
-                 dtype=torch.bfloat16, fusion_dtype: str = "float32"):
+                 dtype=torch.bfloat16, fusion_dtype: str = "float32",
+                 remat=False):
         super().__init__()
         self.n_scales = tuple(n_scales)
         self.lo_scale = lo_scale
         self.align_corners = align_corners
         self.fusion_dtype = getattr(torch, fusion_dtype)
-        self.backbone = HRNetV2(spec, align_corners, dtype, fused_stage1)
+        self.backbone = HRNetV2(spec, align_corners, dtype, fused_stage1,
+                                remat)
         self.ocr = OCRBlock(spec.high_level_ch, num_classes, mid_channels,
                             key_channels, use_pallas, ocr_dropout)
         self.scale_attn = AttnHead(mid_channels, out_ch=1,
@@ -123,6 +127,7 @@ def _common(cfg):
         use_pallas=cfg.model.use_pallas,
         fused_stage1=cfg.model.fused_stage1,
         dtype=getattr(torch, cfg.model.compute_dtype),
+        remat=cfg.model.remat,
     )
 
 

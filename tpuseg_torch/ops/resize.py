@@ -17,8 +17,14 @@ input's magnitude (tests/test_torch_ops.py). For f32 inputs torch computes
 source coordinates in f32 where ``tpuseg`` uses f64: identical at the
 power-of-two ratios the model uses, ~1e-5 apart at ragged ratios.
 
-The training-only custom VJP, ``avg_pool2d`` and ``max_pool2d`` are not
-ported yet (ROADMAP Queue 1).
+``tpuseg``'s custom VJP for the bilinear lerp (``tpuseg/ops/resize.py:
+87-127``) replaces a full-resolution scatter, which is slow on a TPU, with
+a gather. It computes the same linear map as the autograd of
+``F.interpolate``, so it has no counterpart here.
+
+``avg_pool2d`` and ``max_pool2d`` (``tpuseg/ops/resize.py:187-238``) take
+NCHW-logical tensors like the resizes above (``tpuseg``'s take NHWC) and
+compute in f32, cast back to the input's dtype.
 """
 from __future__ import annotations
 
@@ -53,3 +59,22 @@ def scale_as(x: torch.Tensor, y: torch.Tensor, align_corners: bool = False
     """Resize ``x`` to the spatial size of ``y`` (reference:
     network/mynn.py:70-84)."""
     return resize_bilinear(x, y.shape[-2:], align_corners)
+
+
+def avg_pool2d(x: torch.Tensor, window: int, stride: int | None = None,
+               padding: int = 0) -> torch.Tensor:
+    """Average pool that counts the zero padding in each window's divisor
+    (``count_include_pad``, torch's default; the RMI loss's downsample,
+    reference: loss/rmi.py:154-155)."""
+    y = F.avg_pool2d(x.float(), window, stride or window, padding,
+                     count_include_pad=True)
+    return y.to(x.dtype)
+
+
+def max_pool2d(x: torch.Tensor, window: int, stride: int | None = None,
+               padding: int = 0, ceil_mode: bool = False) -> torch.Tensor:
+    """Max pool; ``ceil_mode`` keeps the partial windows at the trailing
+    edge (the Caffe-style SENet stem, reference SEresnext.py:269-272)."""
+    y = F.max_pool2d(x.float(), window, stride or window, padding,
+                     ceil_mode=ceil_mode)
+    return y.to(x.dtype)

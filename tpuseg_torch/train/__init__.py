@@ -1,1 +1,2 @@
-"""Eval-only orchestration (``evaluate_only``); training waits."""
+"""Training and eval orchestration: optimizers and schedules, the train
+step, checkpoints, the ``Trainer`` and ``evaluate_only``."""

@@ -1,12 +1,20 @@
-"""Eval-only entry (port of ``tpuseg/train/loop.py:414-519``
-``evaluate_only``; reference: train.py:406-429 --eval paths).
+"""Training and eval orchestration (port of ``tpuseg/train/loop.py:56-519``;
+reference: train.py:324-597), on one device.
 
-The ``Trainer`` waits for the training slice (ROADMAP Queue 1 item 9).
-Image dumps wait for the dumper port (Queue 1 item 13): every dump option
-raises ``NotImplementedError`` instead of being skipped.
+``tpuseg``'s ``TrainState`` pytree (step, params, batch_stats, opt_state)
+becomes the ``Trainer``'s ``model`` (weights and BN statistics),
+``optimizer`` and ``step``. One module serves training and validation:
+``MscaleOCR`` runs its two-scale forward in train mode and the n-scale
+fusion over the eval scales in eval mode, so ``validate`` switches the
+same module to ``.eval()`` and back.
+
+Not ported yet, and raising instead of being skipped: image dumps (ROADMAP
+Queue 1 item 13), label relaxation (``loss.loss_type=relaxed`` and its
+border schedule, item 12), more than one device (item 10).
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional
 
@@ -21,16 +29,32 @@ from tpuseg_torch.evaluation.metrics import (
     eval_metrics_from_hist,
     format_evaluate_results,
 )
-from tpuseg_torch.losses import get_val_loss
+from tpuseg_torch.losses import get_loss, get_val_loss
 from tpuseg_torch.models import get_model
+from tpuseg_torch.train.checkpoint import (
+    AutoResume,
+    CheckpointManager,
+    load_snapshot,
+)
+from tpuseg_torch.train.optim import make_optimizer
+from tpuseg_torch.train.step import make_train_step
 from tpuseg_torch.utils.logging import Logger
 
 _DUMP_OPTIONS = ("dump_assets", "dump_all_images", "dump_for_auto_labelling",
                  "dump_for_submission", "dump_topn")
 
 
+def _refuse_dumps(cfg: Config, extra: tuple = ()) -> None:
+    wanted = [o for o in _DUMP_OPTIONS if getattr(cfg.eval, o)] + list(extra)
+    if wanted:
+        raise NotImplementedError(
+            f"image dumps are not ported to tpuseg_torch yet (ROADMAP.md "
+            f"Queue 1 item 13): {', '.join(wanted)}; run with "
+            f"--set eval.dump_assets=false")
+
+
 def resolve_device(device: str) -> torch.device:
-    """The eval device; asking for CUDA without a CUDA device raises."""
+    """The run's device; asking for CUDA without a CUDA device raises."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -39,20 +63,296 @@ def resolve_device(device: str) -> torch.device:
     return dev
 
 
+class Trainer:
+    """Training on one device (tpuseg ``Trainer``; reference train.py:
+    324-597): ``fit`` runs ``train_epoch`` and ``validate`` per epoch,
+    checkpointing after each validation and resuming from the latest
+    checkpoint of ``logdir`` on a restart."""
+
+    def __init__(self, cfg: Config, logdir: str = "logs",
+                 device: str = "cuda"):
+        if cfg.mesh.model_parallelism > 1:
+            raise NotImplementedError(
+                "mesh.model_parallelism > 1 (spatial sharding) is not "
+                "ported to tpuseg_torch (ROADMAP.md Queue 1 item 10)")
+        _refuse_dumps(cfg)
+        self.cfg = cfg
+        self.logdir = logdir
+        self.device = resolve_device(device)
+        self.logger = Logger(logdir)
+        self.criterion, self.val_criterion = get_loss(cfg)
+
+        # the eval config's model: n-scale fusion over the eval scales in
+        # eval mode, the two-scale forward in train mode
+        model = get_model(eval_model_config(cfg), seed=cfg.train.seed)
+        self.model = model.to(device=self.device,
+                              memory_format=torch.channels_last).train()
+        n_params = sum(p.numel() for p in model.parameters())
+        self.logger.msg(f"params: {n_params / 1e6:.2f}M on {self.device}")
+
+        self.train_loader, self.val_loader, self.train_set = setup_data(
+            cfg, eval_mode=None, seed=cfg.train.seed)
+        self.steps_per_epoch = max(1, len(self.train_loader))
+        if cfg.train.test_mode:
+            self.steps_per_epoch = min(self.steps_per_epoch, 10)
+        self.optimizer, self.schedule = make_optimizer(
+            cfg, self.model.parameters(), self.steps_per_epoch)
+        self.step = 0
+        # dropout masks come from the device's default generator
+        torch.manual_seed(cfg.train.seed + 1)
+
+        self.ckpt = CheckpointManager(
+            os.path.join(logdir, cfg.train.checkpoint_dir),
+            keep=cfg.train.keep_checkpoints)
+        self.auto_resume = AutoResume(os.environ.get("TPUSEG_TERMINATE_FILE"))
+        self.start_epoch = 0
+        self.best_miou = 0.0
+        self._restore()
+
+        lc = cfg.loss
+        self.train_step = make_train_step(
+            self.criterion, self.schedule, ocr_alpha=lc.ocr_alpha,
+            aux_rmi=lc.ocr_aux_rmi,
+            supervised_mscale_wt=lc.supervised_mscale_wt,
+            align_corners=cfg.model.align_corners,
+            mean=cfg.dataset.mean, std=cfg.dataset.std)
+        self.eval_runner = EvalRunner(
+            self.model, cfg.dataset.num_classes,
+            scales=(cfg.eval.default_scale, *(cfg.eval.extra_scales or ())),
+            do_flip=cfg.eval.do_flip, align_corners=cfg.model.align_corners,
+            is_mscale=infer_mscale(cfg), ignore_label=cfg.dataset.ignore_label,
+            criterion=self.val_criterion, pad_multiple=cfg.eval.pad_multiple,
+            mean=cfg.dataset.mean, std=cfg.dataset.std, device=self.device)
+
+    def _restore(self) -> None:
+        """Full resume (``train.resume``, else the latest checkpoint of this
+        run) or a weights-only warm start (``train.snapshot``)."""
+        cfg = self.cfg
+        if cfg.train.resume:
+            restored = CheckpointManager(cfg.train.resume).restore()
+        else:
+            restored = self.ckpt.restore()
+        if restored is not None:
+            self.model.load_state_dict(restored["model"])
+            self.optimizer.load_state_dict(restored["optimizer"])
+            meta = restored["meta"]
+            self.step = int(meta["step"])
+            self.start_epoch = int(meta["epoch"]) + 1
+            self.best_miou = float(meta.get("mean_iu", 0.0))
+            self.logger.msg(f"resumed at epoch {self.start_epoch} "
+                            f"(best mIoU {self.best_miou:.4f})")
+        elif cfg.train.snapshot:
+            load_snapshot(cfg.train.snapshot, self.model, self.logger.msg)
+            self.logger.msg(f"loaded snapshot {cfg.train.snapshot}")
+
+    def _maybe_reduce_border_labels(self, invert: bool) -> None:
+        """The label side of label relaxation's REDUCE_BORDER_EPOCH flip
+        (tpuseg loop.py:195-211); it waits with ``relaxed``."""
+        if invert and self.cfg.dataset.jointwtborder:
+            raise NotImplementedError(
+                "loss.reduce_border_epoch with dataset.jointwtborder (label "
+                "relaxation) is not ported to tpuseg_torch yet (ROADMAP.md "
+                "Queue 1 item 12)")
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            # from pinned memory the copy runs behind the host
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def train_epoch(self, epoch: int) -> float:
+        """One epoch (reference train(): train.py:465-533). The loss sums on
+        the device and is read back only at log points. Returns the epoch's
+        mean loss."""
+        cfg = self.cfg
+        self._maybe_reduce_border_labels(
+            cfg.loss.reduce_border_epoch != -1
+            and epoch > cfg.loss.reduce_border_epoch)
+        ts = self.train_set
+        if ts is not None and hasattr(ts, "build_epoch"):
+            # coarse-sampling epoch schedule (reference: train.py:433-445)
+            if cfg.dataset.only_coarse and hasattr(ts, "only_coarse"):
+                ts.only_coarse()
+            elif (cfg.dataset.class_uniform_pct
+                  and epoch >= cfg.train.max_cu_epoch
+                  and hasattr(ts, "disable_coarse")):
+                ts.disable_coarse()
+            ts.build_epoch(epoch)
+        self.train_loader.set_epoch(epoch)
+
+        profile_on = cfg.train.profile_steps > 0 and epoch == self.start_epoch
+        trace_dir = os.path.join(self.logdir, "trace")
+        prof = None
+        loss_sum = None
+        n_done = 0
+        data_s = 0.0
+        t_start = t_wait = time.perf_counter()
+        t_first = None
+        for i, batch in enumerate(self.train_loader):
+            if cfg.train.test_mode and i >= 10:
+                break
+            data_s += time.perf_counter() - t_wait
+            device_batch = {"image": self._upload(batch["image"]),
+                            "label": self._upload(batch["label"])}
+            metrics = self.train_step(self.model, self.optimizer,
+                                      device_batch, self.step)
+            self.step += 1
+            loss_sum = metrics["loss"] if loss_sum is None \
+                else loss_sum + metrics["loss"]
+            n_done += 1
+            if profile_on and i == 0:
+                float(metrics["loss"])  # the first step ends untraced
+                prof = self._start_profile()
+            elif prof is not None and i >= cfg.train.profile_steps:
+                float(metrics["loss"])  # the traced steps end inside
+                self._stop_profile(prof, trace_dir)
+                prof = None
+            if (i + 1) % cfg.train.log_every == 0 or i == 0:
+                loss = float(metrics["loss"])  # the device sync point
+                avg = float(loss_sum) / n_done
+                lr = float(self.schedule(self.step))
+                imgs_s = (n_done * batch["image"].shape[0]
+                          / max(time.perf_counter() - t_start, 1e-6))
+                self.logger.msg(
+                    f"epoch {epoch} it {i + 1}/{self.steps_per_epoch} "
+                    f"loss {loss:.4f} (avg {avg:.4f}) lr {lr:.6f} "
+                    f"{imgs_s:.2f} img/s")
+                self.logger.metric("train", {"loss": loss, "lr": lr,
+                                             "imgs_per_sec": imgs_s},
+                                   self.step)
+                if i == 0:
+                    t_first = time.perf_counter()
+            t_wait = time.perf_counter()
+        if prof is not None:  # the epoch was shorter than profile_steps
+            self._stop_profile(prof, trace_dir)
+        mean_loss = float(loss_sum) / n_done if n_done else 0.0  # syncs
+        self._log_epoch(epoch, n_done, data_s, t_first,
+                        batch["image"].shape[0] if n_done else 0, mean_loss)
+        return mean_loss
+
+    def _log_epoch(self, epoch, n_done, data_s, t_first, batch_size,
+                   mean_loss) -> None:
+        """The epoch's rate over steps 2..N (the first pays cuDNN's
+        algorithm choice and the loader's start) and the host time spent
+        waiting for batches."""
+        rate = ""
+        if n_done > 1 and t_first is not None:
+            dt = time.perf_counter() - t_first
+            rate = (f"steps 2-{n_done}: {dt / (n_done - 1):.4f} s/step, "
+                    f"{(n_done - 1) * batch_size / dt:.4f} img/s; ")
+        self.logger.msg(f"epoch {epoch}: {n_done} steps on {self.device}, "
+                        f"{rate}host data wait "
+                        f"{data_s / max(n_done, 1) * 1e3:.1f} ms/step, mean "
+                        f"loss {mean_loss:.4f}")
+
+    def _start_profile(self):
+        """torch.profiler over ``train.profile_steps`` steady-state steps
+        (the first step, which pays cuDNN's algorithm choice, is left
+        out)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, trace_dir: str) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir, f"train_step{self.step}.json")
+        prof.export_chrome_trace(path)
+        self.logger.msg(f"device trace -> {path}")
+
+    def validate(self, epoch: int):
+        """Score the val split with the model in eval mode (reference
+        validate(): train.py:536-597), then checkpoint. Returns the IoU
+        metrics."""
+        cfg = self.cfg
+        runner = self.eval_runner
+        n = cfg.dataset.num_classes
+        total_hist = np.zeros((n, n), np.float64)
+        scale_hists: dict = {}
+        loss_sum = loss_n = 0.0
+        acc = runner.init_acc()
+
+        def drain():  # one device -> host read
+            nonlocal acc, total_hist, loss_sum, loss_n
+            h, sh, ls, ln = runner.drain(acc)
+            total_hist += h
+            for s, v in sh.items():
+                scale_hists[s] = scale_hists.get(s, 0) + v
+            loss_sum, loss_n = loss_sum + ls, loss_n + ln
+            acc = runner.init_acc()
+
+        images = 0
+        t0 = time.perf_counter()
+        self.model.eval()
+        try:
+            for val_idx, batch in enumerate(self.val_loader):
+                if cfg.train.test_mode and val_idx >= 5:
+                    break
+                _, acc = runner.run_batch(batch, need_assets=False, acc=acc)
+                images += len(batch["label"])
+                if (val_idx + 1) % DRAIN_EVERY == 0:
+                    drain()
+                if val_idx % 20 == 0:
+                    self.logger.msg(f"validating [{val_idx}/"
+                                    f"{len(self.val_loader)}]")
+            drain()
+        finally:
+            self.model.train()
+        dt = time.perf_counter() - t0
+        self.logger.msg(f"validate: {images} images on {self.device} in "
+                        f"{dt:.3f} s, {dt / max(images, 1):.4f} s/image")
+
+        metrics = eval_metrics_from_hist(total_hist)
+        class_names = list(getattr(self.val_loader.dataset,
+                                   "trainid_to_name", {}).values()) or None
+        self.logger.msg("\n" + format_evaluate_results(
+            total_hist, class_names, epoch, iou_per_scale=scale_hists))
+        val_scalars = {"loss": loss_sum / loss_n if loss_n else 0.0,
+                       "mIoU": metrics.mean_iou, "acc": metrics.acc}
+        for s, hs in scale_hists.items():  # reference --log_msinf_to_tb
+            val_scalars[f"mIoU_{s}x"] = eval_metrics_from_hist(hs).mean_iou
+        self.logger.metric("val", val_scalars, self.step)
+        if metrics.mean_iou >= self.best_miou:
+            self.best_miou = metrics.mean_iou
+        path = self.ckpt.save(self.step, self.model, self.optimizer, epoch,
+                              metrics.mean_iou)
+        self.logger.msg(f"checkpoint -> {path}")
+        return metrics
+
+    def fit(self) -> None:
+        """The epoch loop (reference main(): train.py:431-462); two epochs
+        in ``train.test_mode``."""
+        cfg = self.cfg
+        max_epoch = 2 if cfg.train.test_mode else cfg.train.max_epoch
+        for epoch in range(self.start_epoch, max_epoch):
+            self.train_epoch(epoch)
+            if (epoch + 1) % cfg.train.val_freq == 0 or \
+                    epoch == max_epoch - 1:
+                self.validate(epoch)
+            if self.auto_resume.termination_requested():
+                self.logger.msg("termination requested: checkpoint + exit")
+                self.ckpt.save(self.step, self.model, self.optimizer, epoch,
+                               self.best_miou)
+                return
+        self.logger.msg(f"done; best mIoU {self.best_miou:.4f}")
+
+
 def evaluate_only(cfg: Config, logdir: str = "logs",
                   eval_mode: str = "val", checkpoint: Optional[str] = None,
                   device: str = "cuda"):
     """Score ``cfg``'s model on the val (or train) split. ``checkpoint``
     is a reference-format torch state dict; without it the weights are a
     seeded fresh init (``train.seed``). Returns the IoU metrics."""
-    wanted = [o for o in _DUMP_OPTIONS if getattr(cfg.eval, o)]
-    if eval_mode == "folder":
-        wanted.append("eval_mode=folder (dumps every image)")
-    if wanted:
-        raise NotImplementedError(
-            f"image dumps are not ported to tpuseg_torch yet (ROADMAP.md "
-            f"Queue 1 item 13): {', '.join(wanted)}; run with "
-            f"--set eval.dump_assets=false")
+    _refuse_dumps(cfg, ("eval_mode=folder (dumps every image)",)
+                  if eval_mode == "folder" else ())
     dev = resolve_device(device)
     logger = Logger(logdir)
 
