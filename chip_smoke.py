@@ -3,22 +3,28 @@ checks each against its plain PyTorch version at the main path's shapes of
 the three eval scales (and at ragged and wider cases) and times it there
 beside its bound (and beside F.scaled_dot_product_attention, or the
 model's unfused cuDNN block), with inputs from device memory, drives
-the W48 3-scale eval path through the CLI's code, compares kernels on vs
-off, and profiles one image. Then the training slice: one tiny f32 train
-step on the card vs the CPU and remat on vs off ([train-parity]), the
-W48 ``train_cityscapes.yaml`` run through the CLI's code for two short
-epochs over a seeded 1024x2048 Cityscapes tree with both kernels in its
-validations ([train]), remat on vs off at W48 ([train-remat]) and a
-profile of one train step ([train-profile]).
+the W48 3-scale eval recipe as shipped (with its image dumps) through the
+CLI's code, compares kernels on vs off, and profiles one image. Then the
+eval surfaces over a seeded 1024x2048 Cityscapes tree: ``dump`` in four
+modes ([dump]), ``export`` of the W48 3-scale program with both kernels as
+registered ops, served in process and over HTTP ([serve]), and
+``summary`` ([summary]). Then the training slice: one tiny f32 train step
+on the card vs the CPU and remat on vs off ([train-parity]), the W48
+``train_cityscapes.yaml`` run through the CLI's code for two short epochs
+over the same tree with both kernels in its validations ([train]), remat
+on vs off at W48 ([train-remat]) and a profile of one train step
+([train-profile]).
 
     python3 chip_smoke.py
 
 Needs one CUDA device, ``nvcc`` and this checkout; exits non-zero otherwise
 and on any failed phase. The profiles' whole tables go to
-``chiprun_out/profile_top.txt`` and ``chiprun_out/train_profile_top.txt``,
-the train run's log to ``chiprun_out/train/``. The line before the last is
-a JSON record of the kernels; the last line is ``{"ok": true, "device":
-{...}}``.
+``chiprun_out/profile_top.txt``, ``serve_profile_top.txt``,
+``eager_profile_top.txt`` and ``train_profile_top.txt``,
+the eval and train runs' logs to ``chiprun_out/logs/`` and
+``chiprun_out/train/``; dumped images and the exported bundle stay in a
+temporary directory. The line before the last is a JSON record of the
+kernels; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -27,9 +33,12 @@ import io
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -71,6 +80,35 @@ def time_ms(fn, copies: list, inner: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
+
+
+def profiled_ms(fn, copies: list, inner: int = 10):
+    """(device ms, host ms) of one ``fn(*args)`` over ``inner`` calls
+    cycling through ``copies``, after one warm-up: the device time is the
+    kernels' own time as torch.profiler records it (so host gaps between
+    launches do not count), the host time the wall time of issuing the
+    calls (outside the profiler). Where the host time exceeds the
+    kernel's, :func:`time_ms` measures the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*copies[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(inner):
+        fn(*copies[i % len(copies)])
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(inner):
+            fn(*copies[i % len(copies)])
+        torch.cuda.synchronize()
+    device_us = sum(
+        getattr(e, "self_device_time_total",
+                getattr(e, "self_cuda_time_total", 0.0))
+        for e in prof.key_averages()
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    return device_us / 1e3 / inner, host * 1e3 / inner
 
 
 def copies_past_l2(args: tuple, nbytes: int, clone=lambda t: t.clone()):
@@ -250,17 +288,20 @@ def _time_attention(ak, gen, card_info):
                              ATTN_BF16_TOL)
         copies = copies_past_l2(args, 2 * args[0].numel() * 2)
         ms = time_ms(ak.fused_object_attention, copies)
+        dev, host = profiled_ms(ak.fused_object_attention, copies)
         plain = time_ms(ak.object_attention_reference, copies)
         with torch.inference_mode():
             lib = time_ms(sdpa, copies)
         bnd, by = _attention_bound(*args)
-        rows[s] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+        rows[s] = {"ms": ms, "kernel_ms": dev, "host_ms": host,
+                   "plain_ms": plain, "library_ms": lib,
                    "bound_ms": bnd, "bound_by": by, "max_abs_err": err}
         log(f"[kernel] ocr_attention {s}x (1,{ATTN_N[s]},256) K=19 bf16: "
             f"kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, "
             f"bound {bnd:.4f} ms ({by}), {bnd / ms:.1%} of the bound "
             f"(median of {REPS} x 10 calls over {len(copies)} input "
-            f"copies, {card_info})")
+            f"copies); profiled: kernel {dev:.4f} ms, host {host:.4f} ms a "
+            f"call; {card_info}")
     return rows
 
 
@@ -303,19 +344,23 @@ def _time_bottleneck(bk, gen, card_info):
         # the input cycles through copies; the weights are shared
         copies = copies_past_l2((x,), 2 * x.numel() * 2)
         ms = time_ms(lambda x: bk.fused_bottleneck_packed(x, packed), copies)
+        dev, host = profiled_ms(
+            lambda x: bk.fused_bottleneck_packed(x, packed), copies)
         plain = time_ms(lambda x: bk.bottleneck_reference(x, *weights),
                         copies)
         with torch.inference_mode():
             unfused_ms = time_ms(unfused, copies)
         bnd, by = _bottleneck_bound(*args)
-        rows[s] = {"ms": ms, "plain_ms": plain, "unfused_ms": unfused_ms,
+        rows[s] = {"ms": ms, "kernel_ms": dev, "host_ms": host,
+                   "plain_ms": plain, "unfused_ms": unfused_ms,
                    "bound_ms": bnd, "bound_by": by, **err}
         log(f"[kernel] bottleneck {s}x x=(1,{BNECK_HW[s][0]},"
             f"{BNECK_HW[s][1]},256) bf16: kernel {ms:.4f} ms, plain "
             f"{plain:.4f} ms, unfused cuDNN block {unfused_ms:.4f} ms, "
             f"bound {bnd:.4f} ms ({by}), {bnd / ms:.1%} of the bound "
             f"(median of {REPS} x 10 calls over {len(copies)} input "
-            f"copies, {card_info})")
+            f"copies); profiled: kernel {dev:.4f} ms, host {host:.4f} ms a "
+            f"call; {card_info}")
     return rows
 
 
@@ -364,48 +409,94 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
-def phase_main_path(card_info: str) -> dict:
-    """W48 HRNet_Mscale, 3 scales, 1024x2048, bf16, both kernels on, through
-    the CLI's code path. Returns each kernel's launch count."""
+# the same path's rates without the recipe's dumps, as PERF.md §5 records
+# them (H100 80GB HBM3, 700 W)
+NO_DUMP_IMG_S = (4.11, 6.49)
+
+
+def _run_cli(argv: list):
+    """``python -m tpuseg_torch.cli`` in this process, its output teed:
+    -> (stdout text, wall seconds, {kernel: launches in the run}). The
+    launch counts are set to 0 just before the run."""
     from tpuseg_torch.cli.main import main as cli_main
     from tpuseg_torch.kernels import bottleneck_fused as bk
     from tpuseg_torch.kernels import ocr_attention as ak
 
-    argv = ["eval", "--config", RECIPE, "--logdir", "chiprun_out/logs",
-            "--set", "dataset.name=synthetic",
-            "--set", "eval.dump_assets=false",
-            "--set", "train.test_mode=true",
-            "--set", "model.use_pallas=true",
-            "--set", "model.fused_stage1=true"]
-    torch.cuda.reset_peak_memory_stats()
     tee = _Tee(sys.stdout)
     ak.LAUNCHES = bk.LAUNCHES = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
         rc = cli_main(argv)
     wall = time.perf_counter() - t0
-    launches = {"ocr_attention": ak.LAUNCHES,
-                "bottleneck_fused": bk.LAUNCHES}
     if rc != 0:
-        raise AssertionError(f"tpuseg_torch.cli eval returned {rc}")
-    log_text = tee.buf.getvalue()
-    if "mean mIoU:" not in log_text:
-        raise AssertionError("the eval printed no mIoU")
-    want = {"ocr_attention": 3 * MAIN_IMAGES,
-            "bottleneck_fused": 9 * MAIN_IMAGES}
-    log(f"[main] launches {launches} (want {want}: 3 attention and 9 "
-        f"bottleneck calls per image)")
+        raise AssertionError(f"tpuseg_torch.cli {argv[0]} returned {rc}")
+    return tee.buf.getvalue(), wall, {"ocr_attention": ak.LAUNCHES,
+                                      "bottleneck_fused": bk.LAUNCHES}
+
+
+def _hold_launches(tag: str, launches: dict, forwards: int) -> None:
+    want = {"ocr_attention": 3 * forwards,
+            "bottleneck_fused": 9 * forwards}
+    log(f"[{tag}] launches {launches} (want {want}: 3 attention and 9 "
+        f"bottleneck calls a 3-scale forward, {forwards} forwards)")
     if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
-    m = re.search(r"after the first: ([\d.]+) img/s, ([\d.]+) Mpx/s",
-                  log_text)
+        raise AssertionError(f"[{tag}] launch counts {launches} != {want}")
+
+
+def _rate(text: str):
+    """(img/s, Mpx/s) after the first image, from evaluate_only's log."""
+    m = re.search(r"after the first: ([\d.]+) img/s, ([\d.]+) Mpx/s", text)
     if m is None:
         raise AssertionError("the eval printed no rate")
+    return float(m.group(1)), float(m.group(2))
+
+
+def _png_seconds(text: str) -> float:
+    m = re.search(r"dumped \d+ batches to \S+: ([\d.]+) s on the host", text)
+    if m is None:
+        raise AssertionError("the eval printed no dump time")
+    return float(m.group(1))
+
+
+def phase_main_path(card_info: str) -> dict:
+    """``eval_cityscapes.yaml`` as shipped (W48 HRNet_Mscale, 3 scales,
+    1024x2048, bf16, its image dumps on) with both kernels on, through the
+    CLI's code path. Returns each kernel's launch count."""
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["eval", "--config", RECIPE, "--logdir", tmp,
+                "--set", "dataset.name=synthetic",
+                "--set", "train.test_mode=true",
+                "--set", "model.use_pallas=true",
+                "--set", "model.fused_stage1=true"]
+        torch.cuda.reset_peak_memory_stats()
+        text, wall, launches = _run_cli(argv)
+        out = Path("chiprun_out/logs")
+        out.mkdir(parents=True, exist_ok=True)
+        shutil.copy(Path(tmp, "log.txt"), out / "log.txt")
+        page = Path(tmp, "eval_images", "index.html")
+        dumped = []
+        if page.exists():
+            dumped = sorted(re.findall(r'<img src="([^"]+_prediction\.png)"',
+                                       page.read_text()))
+            shutil.copy(page, out / "index.html")
+        missing = [f for f in dumped
+                   if not Path(tmp, "eval_images", f).exists()]
+    if "mean mIoU:" not in text:
+        raise AssertionError("the eval printed no mIoU")
+    _hold_launches("main", launches, MAIN_IMAGES)
+    log(f"[main] eval_images/index.html names {len(dumped)} dumped "
+        f"images: {dumped}")
+    if not dumped or missing:
+        raise AssertionError(f"[main] no dump page, or missing {missing}")
+    img_s, mpx_s = _rate(text)
     mem = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[main] W48 HRNet_Mscale 3-scale 1024x2048 bf16, {MAIN_IMAGES} "
-        f"images: {m.group(1)} img/s, {m.group(2)} Mpx/s (images 2-5), "
-        f"whole CLI run {wall:.2f} s, peak device memory {mem:.2f} GiB, on "
-        f"{card_info}")
+        f"images with the recipe's dumps: {img_s} img/s, {mpx_s} Mpx/s "
+        f"(images 2-5; without dumps {NO_DUMP_IMG_S[0]}-"
+        f"{NO_DUMP_IMG_S[1]} img/s, PERF.md §5), {_png_seconds(text):.3f} s "
+        f"writing "
+        f"PNGs, whole CLI run {wall:.2f} s, peak device memory {mem:.2f} "
+        f"GiB, on {card_info}")
     return launches
 
 
@@ -512,8 +603,6 @@ def _profile(fn, card_info: str, top: int = 12, what: str = "one image",
     """Device time by kernel name over one call of ``fn`` (``what``), from
     torch.profiler: the top entries printed, the whole table written to
     chiprun_out/``out_name``. The caller has run ``fn`` before (warm)."""
-    from pathlib import Path
-
     from torch.profiler import ProfilerActivity, profile
 
     mode = torch.inference_mode() if inference else contextlib.nullcontext()
@@ -558,6 +647,350 @@ def _profile(fn, card_info: str, top: int = 12, what: str = "one image",
         log(f"[{tag}] {line}")
 
 
+# ------------------------------------------------------ eval surfaces
+
+DUMP_RECIPE = "tpuseg_torch/cli/recipes/dump_cityscapes.yaml"
+SERVE_CALLS = 5  # served and eager calls a side; calls 2..N are timed
+# served program vs the eager forward of the same module on the card: the
+# same ops on the same inputs, so near-equality (held: L1-relative and
+# argmax agreement; max|d| printed)
+SERVE_TOL = {"l1_rel": 1e-3, "argmax_agree": 0.999}
+
+
+def _conditioned_model(root: str):
+    """The recipe's W48 HRNet_Mscale (3 scales, bf16) from one seeded draw,
+    its BN statistics set by ``_calibrate_bn`` over one val scene, both
+    kernels on, on the card; also saved as a reference-format state dict
+    ``<root>/conditioned.pth`` for the CLI's ``--checkpoint``. Returns
+    (model, path)."""
+    from tpuseg_torch.cli.main import load_config
+    from tpuseg_torch.config import eval_model_config
+    from tpuseg_torch.models import get_model
+    from tpuseg_torch.ops import device_normalize
+
+    cfg = load_config(DUMP_RECIPE, [])
+    model = get_model(eval_model_config(cfg), seed=cfg.train.seed)
+    model = model.to("cuda", memory_format=torch.channels_last).eval()
+    image, _, _ = _fake_scene(1000)
+    _set_kernels(model, False)
+    _calibrate_bn(model, device_normalize(
+        torch.from_numpy(image[None]).cuda()))
+    _set_kernels(model, True)
+    path = str(Path(root, "conditioned.pth"))
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, path)
+    return model, path
+
+
+def _topn_tree(root: str) -> str:
+    """A Cityscapes tree beside ``root`` holding one of its val scenes (top-N
+    dumps every (image, class) pair it selects: 19 a selected image)."""
+    top = Path(root, "topn_tree")
+    lv = "leftImg8bit_trainvaltest/leftImg8bit"
+    gt = "gtFine_trainvaltest/gtFine"
+    (top / lv / "train" / "aachen").mkdir(parents=True)
+    base = "lindau_000000_000019"
+    for sub, name in ((lv, f"{base}_leftImg8bit.png"),
+                      (gt, f"{base}_gtFine_labelIds.png")):
+        d = top / sub / "val" / "lindau"
+        d.mkdir(parents=True)
+        (d / name).symlink_to(Path(root, sub, "val", "lindau", name))
+    return str(top)
+
+
+def _reference_predictions(model, sets: list) -> dict:
+    """{image name: argmax of EvalRunner's fused logits} over the dump
+    recipe's val images, kernels on (these launches are not counted)."""
+    from tpuseg_torch.cli.main import load_config
+    from tpuseg_torch.data.setup import setup_data
+    from tpuseg_torch.evaluation.inference import EvalRunner
+
+    cfg = load_config(DUMP_RECIPE, sets)
+    _, loader, _ = setup_data(cfg, eval_mode="val", seed=cfg.train.seed)
+    runner = EvalRunner(model, 19, device="cuda")
+    preds = {}
+    with torch.inference_mode():
+        for batch in loader:
+            image = torch.from_numpy(batch["image"]).cuda()
+            label = torch.from_numpy(batch["label"]).cuda()
+            logits = runner.forward(image, label, runner.init_acc())[0]
+            preds[batch["name"][0]] = logits.argmax(-1)[0].cpu().numpy()
+    return preds
+
+
+def _metrics_only_rate(model, sets: list) -> float:
+    """img/s over images 2..N of the pipelined eval loop with no asset
+    read (what evaluate_only runs on a batch the dumper skips)."""
+    from tpuseg_torch.cli.main import load_config
+    from tpuseg_torch.data.setup import setup_data
+    from tpuseg_torch.evaluation.inference import EvalRunner
+
+    cfg = load_config(DUMP_RECIPE, sets)
+    _, loader, _ = setup_data(cfg, eval_mode="val", seed=cfg.train.seed)
+    runner = EvalRunner(model, 19, device="cuda")
+    acc = runner.init_acc()
+    batches = list(loader)
+    t0 = None
+    for i, batch in enumerate(batches):
+        _, acc = runner.run_batch(batch, need_assets=False, acc=acc)
+        if i == 0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+    runner.drain(acc)
+    return (len(batches) - 1) / (time.perf_counter() - t0)
+
+
+def _png(path) -> np.ndarray:
+    from PIL import Image
+
+    return np.asarray(Image.open(path))
+
+
+def phase_dump(card_info: str, root: str, model, ckpt: str) -> dict:
+    """``python -m tpuseg_torch.cli dump --config dump_cityscapes.yaml`` on
+    the conditioned W48 weights with both kernels on over the seeded
+    Cityscapes tree, in four modes: assets, auto-labelling, submission,
+    and top-N (over one val scene). Held: the launch counts, each mode's
+    file set, every dumped prediction equal to the argmax of EvalRunner's
+    logits for the same image, and the auto-label PNGs read back as the
+    same trainIds through cityscapes_labels. Returns the launches of the
+    four runs together."""
+    from tpuseg_torch.data.cityscapes_labels import (
+        PALETTE,
+        TRAINID_TO_ID,
+        label2trainid,
+        trainid2name,
+    )
+
+    common = [f"dataset.cityscapes_dir={root}", "train.test_mode=true",
+              "model.use_pallas=true", "model.fused_stage1=true",
+              f"dataset.centroid_root={Path(root, 'centroids')}"]
+    want = _reference_predictions(model, common)
+    names = sorted(want)
+    classes = ", ".join(str(len(np.unique(p))) for p in want.values())
+    log(f"[dump] reference predictions of {len(names)} val images "
+        f"(classes an image: {classes})")
+    base_rate = _metrics_only_rate(model, common)
+    log(f"[dump] metrics-only eval (no asset reads): {base_rate:.4f} img/s "
+        f"(images 2-{len(names)}, {card_info})")
+    to_tid = np.full(256, 255, np.uint8)
+    for k, v in label2trainid.items():
+        if 0 <= k < 256 and v >= 0:
+            to_tid[k] = v
+    modes = (("assets", [], len(names)),
+             ("auto_labelling", ["eval.dump_for_auto_labelling=true"],
+              len(names)),
+             ("submission", ["eval.dump_for_submission=true"], len(names)),
+             ("topn", ["eval.dump_topn=2"], 2))
+    total = {"ocr_attention": 0, "bottleneck_fused": 0}
+    for mode, extra, forwards in modes:
+        sets = common + extra
+        if mode == "topn":
+            sets[0] = f"dataset.cityscapes_dir={_topn_tree(root)}"
+        logdir = Path(root, f"dump_{mode}")
+        argv = ["dump", "--config", DUMP_RECIPE, "--checkpoint", ckpt,
+                "--logdir", str(logdir)]
+        for item in sets:
+            argv += ["--set", item]
+        text, wall, launches = _run_cli(argv)
+        _hold_launches(f"dump {mode}", launches, forwards)
+        for k in total:
+            total[k] += launches[k]
+        out = logdir / "eval_images"
+        files = {str(p.relative_to(out)) for p in out.rglob("*")
+                 if p.is_file()}
+        if mode == "assets":
+            assets = ("input", "gt", "prediction", "composited", "pred_0.5x",
+                      "pred_1.0x", "pred_2.0x", "attn_0.5x", "attn_1.0x",
+                      "err_mask")
+            expect = {f"{n}_{a}.png" for n in names for a in assets}
+            expect.add("index.html")
+            checks = {f"{n}_prediction.png": PALETTE[want[n]] for n in names}
+        elif mode == "auto_labelling":
+            expect = {f"{n}{s}.png" for n in names for s in ("", "_prob")}
+            checks = {f"{n}.png": TRAINID_TO_ID[want[n]] for n in names}
+            back = [np.array_equal(to_tid[_png(out / f"{n}.png")], want[n])
+                    for n in names]
+            log(f"[dump] auto-label PNGs read back as trainIds through "
+                f"cityscapes_labels: {sum(back)}/{len(back)} equal")
+            if not all(back):
+                raise AssertionError("[dump] auto-labels do not round-trip")
+        elif mode == "submission":
+            expect = {f"submit/{n}.png" for n in names}
+            checks = {f"submit/{n}.png": TRAINID_TO_ID[want[n]]
+                      for n in names}
+        else:
+            n = names[0]
+            pairs = [f"{n}_{trainid2name[c]}" for c in range(19)]
+            assets = ("input", "gt", "prediction", "composited", "pred_0.5x",
+                      "pred_1.0x", "pred_2.0x", "attn_0.5x", "attn_1.0x",
+                      "err_mask")
+            expect = {f"best_images/{p}_{a}.png" for p in pairs
+                      for a in assets}
+            expect.add("best_images/topn_failures.html")
+            checks = {f"best_images/{p}_prediction.png": PALETTE[want[n]]
+                      for p in pairs}
+        if files != expect:
+            raise AssertionError(
+                f"[dump] {mode}: files {sorted(files ^ expect)[:8]} differ "
+                f"from the expected set")
+        bad = [f for f, a in checks.items() if not np.array_equal(
+            _png(out / f), a.astype(np.uint8))]
+        if bad:
+            raise AssertionError(f"[dump] {mode}: predictions differ from "
+                                 f"EvalRunner's argmax in {bad}")
+        rate = (f"{_rate(text)[0]} img/s (images 2-{len(names)})"
+                if mode != "topn" else
+                f"{forwards / wall:.4f} forwards/s over the whole CLI run")
+        png = _png_seconds(text) if mode != "topn" else None
+        log(f"[dump] {mode}: {len(files)} files as expected, "
+            f"{len(checks)} predictions equal to EvalRunner's argmax; "
+            f"{rate} vs metrics-only {base_rate:.4f} img/s; "
+            + (f"{png:.3f} s writing PNGs; " if png is not None else "")
+            + f"whole CLI run {wall:.2f} s, on {card_info}")
+    return total
+
+
+def phase_serve(card_info: str, root: str, model, ckpt: str) -> dict:
+    """``python -m tpuseg_torch.cli export --export-size 1024x2048`` of the
+    conditioned W48 3-scale bf16 model with both kernels on; the bundle
+    loaded in process (``load_exported``) and served over HTTP
+    (``make_http_server`` on an ephemeral port). Held: both ops in the
+    graph, 3 and 9 launches a served call, the logits against the eager
+    forward of the same module (SERVE_TOL), the HTTP response byte-equal to
+    the in-process call, /healthz the manifest. Returns the launches of
+    one served call."""
+    import threading
+    import urllib.request
+
+    from tpuseg_torch.kernels import bottleneck_fused as bk
+    from tpuseg_torch.kernels import ocr_attention as ak
+    from tpuseg_torch.ops import device_normalize
+    from tpuseg_torch.serving import load_exported, make_http_server
+
+    bundle = Path(root, "bundle")
+    argv = ["export", "--config", RECIPE, "--checkpoint", ckpt,
+            "--export-size", "1024x2048", "--export-out", str(bundle),
+            "--set", "model.use_pallas=true",
+            "--set", "model.fused_stage1=true"]
+    _, export_s, _ = _run_cli(argv)
+    manifest = json.loads((bundle / "manifest.json").read_text())
+    (entry,) = manifest["entries"]
+    program = torch.export.load(str(bundle / entry["file"]))
+    ops = [str(n.target) for n in program.graph.nodes
+           if str(n.target).startswith("tpuseg_torch.")]
+    counts = {k: ops.count(f"tpuseg_torch.{k}.default")
+              for k in ("ocr_attention", "bottleneck_fused")}
+    calls = [str(n.target) for n in program.graph.nodes
+             if n.op == "call_function"]
+    del program
+    log(f"[serve] exported {entry['input']} on {entry['device']} in "
+        f"{export_s:.2f} s (CLI run), {entry['bytes']} bytes; graph ops "
+        f"{counts} among {len(calls)} calls, "
+        f"{calls.count('aten._assert_tensor_metadata.default')} of them "
+        f"dtype assertions; on {card_info}")
+    if counts != {"ocr_attention": 3, "bottleneck_fused": 9}:
+        raise AssertionError(f"[serve] graph ops {counts}")
+
+    t0 = time.perf_counter()
+    serve = load_exported(str(bundle))
+    load_s = time.perf_counter() - t0
+    image, _, _ = _fake_scene(1001)
+    x32 = device_normalize(torch.from_numpy(image[None]).cuda())
+    x = x32.to(torch.bfloat16)
+
+    def timed(fn):
+        out, times = None, []
+        for _ in range(SERVE_CALLS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return out, float(np.median(times[1:])) * 1e3
+
+    ak.LAUNCHES = bk.LAUNCHES = 0
+    served = serve(x)
+    torch.cuda.synchronize()
+    launches = {"ocr_attention": ak.LAUNCHES,
+                "bottleneck_fused": bk.LAUNCHES}
+    _hold_launches("serve", launches, 1)
+    served, served_ms = timed(lambda: serve(x))
+    with torch.inference_mode():
+        eager, eager_ms = timed(lambda: model(x)["pred"].float())
+    max_d, l1 = compare(served, eager)
+    agree = float((served.argmax(-1) == eager.argmax(-1)).float().mean())
+    log(f"[serve] served vs eager forward of the same module: max|d| "
+        f"{max_d:.3e}, l1_rel {l1:.3e} (bound {SERVE_TOL['l1_rel']}), "
+        f"argmax agreement {agree:.6f} (bound {SERVE_TOL['argmax_agree']}); "
+        f"logit std {float(eager.std()):.4f}")
+    if not (torch.isfinite(served).all() and l1 <= SERVE_TOL["l1_rel"]
+            and agree >= SERVE_TOL["argmax_agree"]):
+        raise AssertionError("[serve] served logits off the eager forward")
+
+    # where the served call's time goes, beside the eager forward's
+    _profile(lambda: serve(x), card_info, top=4, what="one served call",
+             out_name="serve_profile_top.txt", tag="serve-profile")
+    _profile(lambda: model(x)["pred"].float(), card_info, top=4,
+             what="one eager forward of the same module",
+             out_name="eager_profile_top.txt", tag="serve-profile")
+
+    srv = make_http_server(str(bundle), host="127.0.0.1", port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        health = json.loads(urllib.request.urlopen(
+            f"{base}/healthz", timeout=60).read())
+        body = io.BytesIO()
+        np.save(body, x32.cpu().numpy())
+        t = time.perf_counter()
+        reply = urllib.request.urlopen(urllib.request.Request(
+            f"{base}/predict", data=body.getvalue(), method="POST"),
+            timeout=300).read()
+        http_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    local = io.BytesIO()
+    np.save(local, serve(x32.cpu().numpy()).cpu().numpy(),
+            allow_pickle=False)
+    same = reply == local.getvalue()
+    log(f"[serve] HTTP /predict of a (1,1024,2048,3) f32 .npy: {http_ms:.1f} "
+        f"ms round trip, {len(reply)} bytes, byte-equal to the in-process "
+        f"call: {same}; /healthz is the manifest: {health == manifest}; "
+        f"on {card_info}")
+    if not same or health != manifest:
+        raise AssertionError("[serve] HTTP reply or /healthz differ")
+    log(f"[serve] W48 HRNet_Mscale 3-scale 1024x2048 bf16: served "
+        f"{served_ms:.2f} ms a call vs eager {eager_ms:.2f} ms (median of "
+        f"calls 2-{SERVE_CALLS}), load {load_s:.2f} s, export {export_s:.2f}"
+        f" s, artifact {entry['bytes'] / 1e6:.1f} MB, on {card_info}")
+    return launches
+
+
+def phase_summary(card_info: str) -> None:
+    """``python -m tpuseg_torch.cli summary`` on the eval recipe at
+    1024x2048: params held equal to the eval model's parameter count."""
+    from tpuseg_torch.cli.main import load_config
+    from tpuseg_torch.config import eval_model_config
+    from tpuseg_torch.models import get_model
+
+    text, wall, _ = _run_cli(["summary", "--config", RECIPE])
+    m = re.search(r"params: [\d.]+M \((\d+)\)  fwd GFLOPs: ([\d.]+)  peak "
+                  r"device memory: ([\d.]+)GiB", text)
+    cfg = load_config(RECIPE, [])
+    want = sum(p.numel() for p in get_model(eval_model_config(cfg))
+               .parameters())
+    if m is None or int(m.group(1)) != want:
+        raise AssertionError(f"[summary] params {m and m.group(1)} != "
+                             f"{want}")
+    log(f"[summary] W48 HRNet_Mscale 3-scale 1024x2048 bf16: params "
+        f"{m.group(1)} (= the eval model's {want}), {m.group(2)} GFLOPs "
+        f"counted (convolutions and matrix products), peak device memory "
+        f"{m.group(3)} GiB, CLI run {wall:.2f} s, on {card_info}")
+
+
 # ---------------------------------------------------------------- training
 
 TRAIN_RECIPE = "tpuseg_torch/cli/recipes/train_cityscapes.yaml"
@@ -594,7 +1027,6 @@ def _write_fake_cityscapes(root: str) -> None:
     real data path runs: decode, scale / crop / flip, class-uniform
     sampling, the uint8 wire."""
     from concurrent.futures import ThreadPoolExecutor
-    from pathlib import Path
 
     from PIL import Image
 
@@ -860,7 +1292,7 @@ def _kernels_at_trained_inputs(model, image) -> None:
                              f"{len(seen)} calls")
 
 
-def phase_train(card_info: str) -> dict:
+def phase_train(card_info: str, root: str) -> dict:
     """``train_cityscapes.yaml`` at full width (W48 HRNet_Mscale, two-scale
     1024x2048 fwd+bwd in bf16, RMI + aux + mscale CE, SGD + poly, remat of
     stages 1-3, the uint8 wire) through the CLI's code, bs 1, two epochs of
@@ -870,10 +1302,6 @@ def phase_train(card_info: str) -> dict:
     fresh after the optimizer steps, each kernel vs its plain version at
     the trained model's inputs, the launch counts. Returns each kernel's
     launches in the two validations."""
-    import shutil
-    import tempfile
-    from pathlib import Path
-
     from tpuseg_torch.cli.main import load_config, main as cli_main
     from tpuseg_torch.config import eval_model_config
     from tpuseg_torch.data.setup import setup_data
@@ -885,126 +1313,121 @@ def phase_train(card_info: str) -> dict:
 
     out_dir = Path("chiprun_out/train")
     out_dir.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        _write_fake_cityscapes(root)
-        log(f"[train] wrote {TRAIN_IMAGES} train + {VAL_IMAGES} val "
-            f"1024x2048 scenes in {time.perf_counter() - t0:.1f} s")
-        # checkpoints (~0.6 GB each at W48) stay out of chiprun_out
-        logdir = str(Path(root, "logs"))
-        sets = ["train.batch_size=1", "train.test_mode=true",
-                "train.log_every=1", "model.use_pallas=true",
-                "model.fused_stage1=true",
-                f"dataset.cityscapes_dir={root}",
-                f"dataset.centroid_root={Path(root, 'centroids')}"]
-        argv = ["train", "--config", TRAIN_RECIPE, "--logdir", logdir]
-        for item in sets:
-            argv += ["--set", item]
+    # checkpoints (~0.6 GB each at W48) stay out of chiprun_out
+    logdir = str(Path(root, "logs"))
+    sets = ["train.batch_size=1", "train.test_mode=true",
+            "train.log_every=1", "model.use_pallas=true",
+            "model.fused_stage1=true",
+            f"dataset.cityscapes_dir={root}",
+            f"dataset.centroid_root={Path(root, 'centroids')}"]
+    argv = ["train", "--config", TRAIN_RECIPE, "--logdir", logdir]
+    for item in sets:
+        argv += ["--set", item]
 
-        recorded: list = []
-        undo = _spy_validation(recorded)
-        stale = {"launches": 0, "stale": 0}
-        undo_pack = _spy_packed_weights(stale)
-        tee = _Tee(sys.stdout)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        ak.LAUNCHES = bk.LAUNCHES = 0
-        t0 = time.perf_counter()
-        try:
-            with contextlib.redirect_stdout(tee):
-                rc = cli_main(argv)
-        finally:
-            undo()
-            undo_pack()
-        wall = time.perf_counter() - t0
-        launches = {"ocr_attention": ak.LAUNCHES,
-                    "bottleneck_fused": bk.LAUNCHES}
-        mem = torch.cuda.max_memory_allocated() / 2 ** 30
-        for name in ("log.txt", "metrics.jsonl"):
-            shutil.copy(Path(logdir, name), out_dir / name)
-        if rc != 0:
-            raise AssertionError(f"tpuseg_torch.cli train returned {rc}")
-        text = tee.buf.getvalue()
-        cfg = load_config(TRAIN_RECIPE, sets)
+    recorded: list = []
+    undo = _spy_validation(recorded)
+    stale = {"launches": 0, "stale": 0}
+    undo_pack = _spy_packed_weights(stale)
+    tee = _Tee(sys.stdout)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ak.LAUNCHES = bk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            rc = cli_main(argv)
+    finally:
+        undo()
+        undo_pack()
+    wall = time.perf_counter() - t0
+    launches = {"ocr_attention": ak.LAUNCHES,
+                "bottleneck_fused": bk.LAUNCHES}
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name in ("log.txt", "metrics.jsonl"):
+        shutil.copy(Path(logdir, name), out_dir / name)
+    if rc != 0:
+        raise AssertionError(f"tpuseg_torch.cli train returned {rc}")
+    text = tee.buf.getvalue()
+    cfg = load_config(TRAIN_RECIPE, sets)
 
-        lines = [json.loads(x) for x in
-                 Path(logdir, "metrics.jsonl").read_text().splitlines()]
-        losses = [x["loss"] for x in lines if x["phase"] == "train"]
-        log(f"[train] loss at steps 1..{len(losses)}: "
-            + " ".join(f"{v:.4f}" for v in losses))
-        if len(losses) != 20 or not all(math.isfinite(v) for v in losses):
-            raise AssertionError(f"train losses {losses}")
-        for m in re.finditer(r"epoch (\d+): (\d+) steps on \S+, steps "
-                             r"2-\d+: ([\d.]+) s/step, ([\d.]+) img/s; host "
-                             r"data wait ([\d.]+) ms/step", text):
-            log(f"[train] epoch {m.group(1)}: steps 2-{m.group(2)} "
-                f"{m.group(3)} s/step, {m.group(4)} img/s, host data wait "
-                f"{m.group(5)} ms/step (W48 two-scale 1024x2048 bf16, bs "
-                f"1, remat 1-3, {card_info})")
-        for m in re.finditer(r"validate: (\d+) images on \S+ in ([\d.]+) "
-                             r"s, ([\d.]+) s/image", text):
-            log(f"[train] validation: {m.group(1)} images, {m.group(3)} "
-                f"s/image (3 scales, kernels on, {card_info})")
-        log(f"[train] whole CLI run {wall:.1f} s, peak device memory "
-            f"{mem:.2f} GiB, on {card_info}")
+    lines = [json.loads(x) for x in
+             Path(logdir, "metrics.jsonl").read_text().splitlines()]
+    losses = [x["loss"] for x in lines if x["phase"] == "train"]
+    log(f"[train] loss at steps 1..{len(losses)}: "
+        + " ".join(f"{v:.4f}" for v in losses))
+    if len(losses) != 20 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train losses {losses}")
+    for m in re.finditer(r"epoch (\d+): (\d+) steps on \S+, steps "
+                         r"2-\d+: ([\d.]+) s/step, ([\d.]+) img/s; host "
+                         r"data wait ([\d.]+) ms/step", text):
+        log(f"[train] epoch {m.group(1)}: steps 2-{m.group(2)} "
+            f"{m.group(3)} s/step, {m.group(4)} img/s, host data wait "
+            f"{m.group(5)} ms/step (W48 two-scale 1024x2048 bf16, bs "
+            f"1, remat 1-3, {card_info})")
+    for m in re.finditer(r"validate: (\d+) images on \S+ in ([\d.]+) "
+                         r"s, ([\d.]+) s/image", text):
+        log(f"[train] validation: {m.group(1)} images, {m.group(3)} "
+            f"s/image (3 scales, kernels on, {card_info})")
+    log(f"[train] whole CLI run {wall:.1f} s, peak device memory "
+        f"{mem:.2f} GiB, on {card_info}")
 
-        # the trained module: moved from its seeded init, and checkpointed
-        runner = recorded[-1][0]
-        model = runner.model
-        trained = {k: v.detach().cpu() for k, v in
-                   model.state_dict().items()}
-        init = get_model(eval_model_config(cfg),
-                         seed=cfg.train.seed).state_dict()
-        moved = {kind: [not torch.equal(trained[k], init[k])
-                        for k in init if k.endswith(suffix)]
-                 for kind, suffix in (("parameters", ("weight", "bias")),
-                                      ("BN running stats",
-                                       ("running_mean", "running_var")))}
-        log("[train] moved from the init: " + ", ".join(
-            f"{sum(v)}/{len(v)} {k}" for k, v in moved.items()))
-        if any(sum(v) < 0.99 * len(v) for v in moved.values()):
-            raise AssertionError("training left the weights in place")
-        ckpt = CheckpointManager(str(Path(logdir, cfg.train.checkpoint_dir)))
-        step = ckpt.latest_step()
-        saved = ckpt.restore()["model"]
-        same = all(torch.equal(saved[k], v) for k, v in trained.items())
-        log(f"[train] checkpoint step {step} restored, equal to the "
-            f"trained module: {same}")
-        if step != 20 or not same:
-            raise AssertionError(f"checkpoint step {step}, equal {same}")
+    # the trained module: moved from its seeded init, and checkpointed
+    runner = recorded[-1][0]
+    model = runner.model
+    trained = {k: v.detach().cpu() for k, v in
+               model.state_dict().items()}
+    init = get_model(eval_model_config(cfg),
+                     seed=cfg.train.seed).state_dict()
+    moved = {kind: [not torch.equal(trained[k], init[k])
+                    for k in init if k.endswith(suffix)]
+             for kind, suffix in (("parameters", ("weight", "bias")),
+                                  ("BN running stats",
+                                   ("running_mean", "running_var")))}
+    log("[train] moved from the init: " + ", ".join(
+        f"{sum(v)}/{len(v)} {k}" for k, v in moved.items()))
+    if any(sum(v) < 0.99 * len(v) for v in moved.values()):
+        raise AssertionError("training left the weights in place")
+    ckpt = CheckpointManager(str(Path(logdir, cfg.train.checkpoint_dir)))
+    step = ckpt.latest_step()
+    saved = ckpt.restore()["model"]
+    same = all(torch.equal(saved[k], v) for k, v in trained.items())
+    log(f"[train] checkpoint step {step} restored, equal to the "
+        f"trained module: {same}")
+    if step != 20 or not same:
+        raise AssertionError(f"checkpoint step {step}, equal {same}")
 
-        # the packed-weight cache after 10 optimizer steps: every block
-        # the kernel was given vs a fresh fold + pack of that moment
-        log(f"[train] packed bottleneck weights checked against a fresh "
-            f"fold + pack at every launch of the validations: "
-            f"{stale['launches']} launches, {stale['stale']} stale")
-        if stale["stale"] or stale["launches"] != 9 * 2 * VAL_IMAGES:
-            raise AssertionError(f"stale packed weights: {stale}")
+    # the packed-weight cache after 10 optimizer steps: every block
+    # the kernel was given vs a fresh fold + pack of that moment
+    log(f"[train] packed bottleneck weights checked against a fresh "
+        f"fold + pack at every launch of the validations: "
+        f"{stale['launches']} launches, {stale['stale']} stale")
+    if stale["stale"] or stale["launches"] != 9 * 2 * VAL_IMAGES:
+        raise AssertionError(f"stale packed weights: {stale}")
 
-        # held: each kernel vs its plain version at the inputs the trained
-        # model gives it. Printed: the last validation's argmax (kernels
-        # on) vs the same weights with kernels off. 20 steps leave a net of
-        # so high a gain that the fused block's f32 folded-BN math and the
-        # unfused block's bf16 conv -> BN passes flip some argmaxes; the
-        # spread between runs is in PERF.md
-        _, val_loader, _ = setup_data(cfg, eval_mode="val",
-                                      seed=cfg.train.seed)
-        batches = [b for _, b in zip(range(VAL_IMAGES), val_loader)]
-        on = recorded[-VAL_IMAGES:]
-        model.eval()
-        _set_kernels(model, False)
-        for batch in batches:
-            runner.run_batch(batch, need_assets=False, acc=runner.init_acc())
-        off = recorded[-VAL_IMAGES:]
-        _kernels_at_trained_inputs(model, device_normalize(
-            torch.from_numpy(batches[0]["image"]).cuda()))
-        model.train()
-        agree = float(torch.stack([(a[1] == b[1]).float().mean()
-                                   for a, b in zip(on, off)]).mean())
-        std = float(torch.stack([b[2] for b in off]).mean())
-        log(f"[train] the last validation (kernels on) vs the same weights "
-            f"with kernels off: argmax agreement {agree:.5f} over "
-            f"{VAL_IMAGES} images (not held; logit std {std:.1f})")
+    # held: each kernel vs its plain version at the inputs the trained
+    # model gives it. Printed: the last validation's argmax (kernels
+    # on) vs the same weights with kernels off. 20 steps leave a net of
+    # so high a gain that the fused block's f32 folded-BN math and the
+    # unfused block's bf16 conv -> BN passes flip some argmaxes; the
+    # spread between runs is in PERF.md
+    _, val_loader, _ = setup_data(cfg, eval_mode="val",
+                                  seed=cfg.train.seed)
+    batches = [b for _, b in zip(range(VAL_IMAGES), val_loader)]
+    on = recorded[-VAL_IMAGES:]
+    model.eval()
+    _set_kernels(model, False)
+    for batch in batches:
+        runner.run_batch(batch, need_assets=False, acc=runner.init_acc())
+    off = recorded[-VAL_IMAGES:]
+    _kernels_at_trained_inputs(model, device_normalize(
+        torch.from_numpy(batches[0]["image"]).cuda()))
+    model.train()
+    agree = float(torch.stack([(a[1] == b[1]).float().mean()
+                               for a, b in zip(on, off)]).mean())
+    std = float(torch.stack([b[2] for b in off]).mean())
+    log(f"[train] the last validation (kernels on) vs the same weights "
+        f"with kernels off: argmax agreement {agree:.5f} over "
+        f"{VAL_IMAGES} images (not held; logit std {std:.1f})")
 
     # the validations launched both kernels on every image
     want = {"ocr_attention": 3 * 2 * VAL_IMAGES,
@@ -1076,12 +1499,24 @@ def main() -> int:
     phase_build()
     records = phase_kernels(card_info)
     launches = phase_main_path(card_info)
+    phase_on_off(card_info)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        _write_fake_cityscapes(root)
+        log(f"[data] wrote {TRAIN_IMAGES} train + {VAL_IMAGES} val "
+            f"1024x2048 scenes in {time.perf_counter() - t0:.1f} s")
+        model, ckpt = _conditioned_model(root)
+        dump_launches = phase_dump(card_info, root, model, ckpt)
+        serve_launches = phase_serve(card_info, root, model, ckpt)
+        del model
+        torch.cuda.empty_cache()
+        phase_summary(card_info)
+        phase_train_parity()
+        train_launches = phase_train(card_info, root)
     for r in records:
         r["launches"] = launches[r["name"]]
-    phase_on_off(card_info)
-    phase_train_parity()
-    train_launches = phase_train(card_info)
-    for r in records:
+        r["dump_launches"] = dump_launches[r["name"]]
+        r["serve_launches"] = serve_launches[r["name"]]
         r["train_launches"] = train_launches[r["name"]]
     phase_train_remat(card_info)
     jax_mods = sorted({m.split(".")[0] for m in sys.modules}

@@ -16,12 +16,11 @@ from tpuseg.evaluation.inference import EvalRunner as JaxRunner
 from tpuseg.losses.ce import cross_entropy as jax_ce
 from tpuseg.models.hrnet import HRNetSpec as JaxSpec
 from tpuseg.models.ocrnet import MscaleOCR as JaxMscale
-from tpuseg_torch.cli.main import load_config, main as cli_main
+from tpuseg_torch.cli.main import main as cli_main
 from tpuseg_torch.evaluation.inference import EvalRunner
 from tpuseg_torch.losses import cross_entropy
 from tpuseg_torch.models.hrnet import HRNetSpec
 from tpuseg_torch.models.ocrnet import MscaleOCR
-from tpuseg_torch.train.loop import evaluate_only
 
 set_threads()
 
@@ -104,7 +103,6 @@ def test_cli_eval_subprocess_imports_no_jax(tmp_path):
             "--set", "model.arch=ocrnet.HRNet_Mscale_Tiny",
             "--set", "dataset.name=synthetic",
             "--set", "dataset.crop_size=[64,128]",
-            "--set", "eval.dump_assets=false",
             "--set", "train.test_mode=true",
             "--set", "model.use_pallas=true"]
     env = dict(os.environ, OMP_NUM_THREADS="2")
@@ -112,17 +110,12 @@ def test_cli_eval_subprocess_imports_no_jax(tmp_path):
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
     assert "mean mIoU:" in res.stdout
+    # the recipe as shipped dumps its assets (eval.dump_assets: true)
+    dumped = os.listdir(tmp_path / "eval_images")
+    assert "index.html" in dumped
+    assert any(f.endswith("_attn_1.0x.png") for f in dumped)
     assert "JAX_MODULES []" in res.stdout, res.stdout[-500:]
     assert "TPUSEG_MODULES []" in res.stdout, res.stdout[-500:]
-
-
-def test_dump_options_raise():
-    for opt in ("eval.dump_assets=true", "eval.dump_all_images=true",
-                "eval.dump_topn=3"):
-        cfg = load_config(None, ["model.arch=ocrnet.HRNet_Mscale_Tiny",
-                                 "dataset.name=synthetic", opt])
-        with pytest.raises(NotImplementedError):
-            evaluate_only(cfg, device="cpu")
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch, tmp_path):
@@ -130,5 +123,4 @@ def test_cuda_device_without_cuda_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         cli_main(["eval", "--config", RECIPE, "--logdir", str(tmp_path),
                   "--set", "model.arch=ocrnet.HRNet_Mscale_Tiny",
-                  "--set", "dataset.name=synthetic",
-                  "--set", "eval.dump_assets=false"])
+                  "--set", "dataset.name=synthetic"])

@@ -267,6 +267,10 @@ def test_trainer_fit_then_auto_resume(fake_cityscapes, tmp_path):
         assert not torch.equal(before[k], after[k]), k
     log = open(os.path.join(logdir, "log.txt")).read()
     assert log.count(" s/step, ") == 2          # one rate line an epoch
+    # each validation dumps composites of the images the dumper picks
+    dumped = os.listdir(os.path.join(logdir, "best_images"))
+    assert "index.html" in dumped
+    assert any(f.endswith("_composited.png") for f in dumped)
 
     # the checkpoint holds the trained state; a second Trainer resumes it
     assert trainer.ckpt.latest_step() == steps

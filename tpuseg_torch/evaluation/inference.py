@@ -25,6 +25,21 @@ from tpuseg_torch.ops.normalize import IMAGENET_MEAN, IMAGENET_STD
 DRAIN_EVERY = 8
 
 
+def calc_err_mask_all(pred: np.ndarray, gt: np.ndarray,
+                      num_classes: int, ignore_label: int = 255) -> np.ndarray:
+    """Class-agnostic error mask (reference: trnval_utils.py:71-79)."""
+    mask = (gt >= 0) & (gt != ignore_label)
+    return (mask & (pred != gt)).astype(int)
+
+
+def calc_err_mask(pred, gt, classid, ignore_label: int = 255):
+    """Class-specific error mask (reference: trnval_utils.py:58-68)."""
+    class_mask = (gt >= 0) & (gt == classid)
+    fp = (pred == classid) & ~class_mask & (gt != ignore_label)
+    fn = (pred != classid) & class_mask
+    return (fp | fn).astype(int)
+
+
 def _resize_nhwc(x: torch.Tensor, size, align_corners: bool) -> torch.Tensor:
     y = resize_bilinear(x.permute(0, 3, 1, 2), size, align_corners)
     return y.permute(0, 2, 3, 1)
@@ -190,15 +205,16 @@ class EvalRunner:
                       and v.shape[2] >= w else v for k, v in assets.items()}
         out = {}
         if need_assets:
+            # full-resolution device->host reads (tens of MB an image at
+            # 1024x2048): callers ask only for batches the dumper writes
             out["predictions"] = pred.cpu().numpy()
             out["prob_mask"] = prob.cpu().numpy()
             for k, v in assets.items():
                 out[k] = v.cpu().numpy()
             if calc_metrics:
-                gt = np.asarray(batch["label"])
-                mask = (gt >= 0) & (gt != self.ignore_label)
-                out["err_mask"] = (mask & (out["predictions"] != gt)
-                                   ).astype(int)
+                out["err_mask"] = calc_err_mask_all(
+                    out["predictions"], np.asarray(batch["label"]),
+                    self.num_classes, self.ignore_label)
         if not legacy:
             return out, acc
         hist, scale_hists, loss_sum, loss_n = self.drain(acc)

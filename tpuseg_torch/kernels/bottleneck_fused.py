@@ -24,14 +24,18 @@ into each block with one bulk copy). The CUDA kernel is laid out for
 HRNet's stage-1 width, (C, M) = (256, 64): see :func:`supports`.
 
 Dispatch: a CPU tensor takes :func:`bottleneck_reference`; a CUDA tensor
-launches the kernel or raises. There is no fallback.
+launches the kernel or raises. There is no fallback. The wrapper is the
+registered op ``tpuseg_torch::bottleneck_fused`` with a shape function
+(``register_fake``), so an exported program (``tpuseg_torch.serving``)
+holds the kernel as one node and launches it when run on the card; the
+model freezes the packed block for it (``Bottleneck.freeze_folded``).
 """
-from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.flop_counter
 
 from tpuseg_torch.kernels import _build
 
@@ -134,38 +138,74 @@ def fused_bottleneck(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
 
 def fused_bottleneck_packed(x, packed: PackedWeights) -> torch.Tensor:
     """The kernel's wrapper: :func:`fused_bottleneck` over weights packed
-    once by :func:`pack_weights`."""
+    once by :func:`pack_weights`. Calls the registered op
+    ``tpuseg_torch::bottleneck_fused``, which ``torch.export`` keeps as one
+    opaque node of the exported graph."""
+    return torch.ops.tpuseg_torch.bottleneck_fused(x, *packed.weights,
+                                                    packed.blob)
+
+
+def _check_call(x, w1, b1, w2, b2, w3, b3, blob):
+    """What the op takes, from shapes, dtypes and devices alone (the real
+    implementation and the shape function both check it)."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, H, W, C), got {tuple(x.shape)}")
-    w1 = packed.weights[0]
     if x.shape[-1] != w1.shape[0] or x.device != w1.device:
         raise ValueError(f"x {tuple(x.shape)} on {x.device} does not match "
                          f"w1 {tuple(w1.shape)} on {w1.device}")
+    _check_weights(x.shape[-1], w1, b1, w2, b2, w3, b3)
     if x.device.type == "cpu":
-        return bottleneck_reference(x, *packed.weights)
+        return
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    b, h, w, c = x.shape
-    m = w1.shape[-1]
     names = ("w1", "b1", "w2", "b2", "w3", "b3")
-    for name, t in (("x", x), *zip(names, packed.weights)):
+    for name, t in (("x", x), *zip(names, (w1, b1, w2, b2, w3, b3))):
         want = torch.float32 if name.startswith("b") else torch.bfloat16
         if t.dtype != want:
             raise TypeError(f"{name} must be {want}, got {t.dtype}")
-    if not supports(x.device, c, m):
+    if not supports(x.device, x.shape[-1], w1.shape[-1]):
         raise ValueError(f"the CUDA kernel is built for (C, M) = "
                          f"{KERNEL_SHAPE}, HRNet's stage-1 block; got "
-                         f"({c}, {m})")
+                         f"({x.shape[-1]}, {w1.shape[-1]})")
+    if blob is None or blob.device != x.device:
+        raise ValueError("CUDA weights need the packed parameter block "
+                         "(pack_weights) on x's device")
+
+
+@torch.library.custom_op("tpuseg_torch::bottleneck_fused", mutates_args=())
+def _bottleneck_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                      w2: torch.Tensor, b2: torch.Tensor, w3: torch.Tensor,
+                      b3: torch.Tensor,
+                      blob: Optional[torch.Tensor]) -> torch.Tensor:
+    _check_call(x, w1, b1, w2, b2, w3, b3, blob)
+    if x.device.type == "cpu":
+        # contiguous, as the shape function and the kernel give it
+        return bottleneck_reference(x, w1, b1, w2, b2, w3, b3).contiguous()
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("x must be contiguous and 16-byte aligned")
+    b, h, w, _ = x.shape
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
     global LAUNCHES
     lib = _build.library()
     err = lib.tpuseg_bottleneck(
-        x.data_ptr(), packed.blob.data_ptr(), out.data_ptr(), b, h, w,
+        x.data_ptr(), blob.data_ptr(), out.data_ptr(), b, h, w,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "bottleneck_fused")
     LAUNCHES += 1
     return out
+
+
+@_bottleneck_fused.register_fake
+def _(x, w1, b1, w2, b2, w3, b3, blob):
+    _check_call(x, w1, b1, w2, b2, w3, b3, blob)
+    return x.new_empty(x.shape)
+
+
+@torch.utils.flop_counter.register_flop_formula(
+    torch.ops.tpuseg_torch.bottleneck_fused)
+def _flops(x_shape, w1_shape, *args, **kwargs) -> int:
+    b, h, w, c = x_shape
+    m = w1_shape[-1]
+    return 2 * b * h * w * (c * m + 9 * m * m + m * c)

@@ -7,11 +7,14 @@ and the result in Q's dtype. The kernel is ``csrc/ocr_attention.cu``; its
 header says what bounds it on the H100 and how it is laid out.
 
 Dispatch: a CPU tensor takes :func:`object_attention_reference`; a CUDA
-tensor launches the kernel or raises. There is no fallback.
+tensor launches the kernel or raises. There is no fallback. The wrapper is
+the registered op ``tpuseg_torch::ocr_attention`` with a shape function
+(``register_fake``), so an exported program (``tpuseg_torch.serving``)
+holds the kernel as one node and launches it when run on the card.
 """
-from __future__ import annotations
 
 import torch
+import torch.utils.flop_counter
 
 from tpuseg_torch.kernels import _build
 
@@ -69,7 +72,15 @@ def _check(q, key, val):
 def fused_object_attention(q: torch.Tensor, key: torch.Tensor,
                            val: torch.Tensor) -> torch.Tensor:
     """q (B, N, d) pixel queries; key/val (B, K, d) class proxies ->
-    (B, N, d) context in q's dtype."""
+    (B, N, d) context in q's dtype. Calls the registered op
+    ``tpuseg_torch::ocr_attention``, which ``torch.export`` keeps as one
+    opaque node of the exported graph."""
+    return torch.ops.tpuseg_torch.ocr_attention(q, key, val)
+
+
+@torch.library.custom_op("tpuseg_torch::ocr_attention", mutates_args=())
+def _ocr_attention(q: torch.Tensor, key: torch.Tensor,
+                   val: torch.Tensor) -> torch.Tensor:
     _check(q, key, val)
     if q.device.type == "cpu":
         return object_attention_reference(q, key, val)
@@ -97,3 +108,16 @@ def fused_object_attention(q: torch.Tensor, key: torch.Tensor,
     _build.check(err, "ocr_attention")
     LAUNCHES += 1
     return out
+
+
+@_ocr_attention.register_fake
+def _(q, key, val):
+    _check(q, key, val)
+    return q.new_empty(q.shape)
+
+
+@torch.utils.flop_counter.register_flop_formula(
+    torch.ops.tpuseg_torch.ocr_attention)
+def _flops(q_shape, key_shape, *args, **kwargs) -> int:
+    b, n, d = q_shape
+    return 4 * b * n * key_shape[1] * d  # Q.K^T and P.V

@@ -29,6 +29,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from tpuseg_torch.kernels.bottleneck_fused import (
+    PackedWeights,
     fold_bn,
     fused_bottleneck_packed,
     pack_weights,
@@ -102,6 +103,11 @@ class BasicBlock(nn.Module):
         return torch.relu(y + residual)
 
 
+# the buffers Bottleneck.freeze_folded keeps: folded weights, packed block
+_FROZEN = ("folded_w1", "folded_b1", "folded_w2", "folded_b2", "folded_w3",
+           "folded_b3", "folded_blob")
+
+
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 -> 1x1(x4) bottleneck (reference: hrnetv2.py:69-106).
 
@@ -156,15 +162,43 @@ class Bottleneck(nn.Module):
         self._folded_cache = (key, weights)
         return weights
 
+    def freeze_folded(self) -> None:
+        """Fold and pack now, and keep the result as non-persistent
+        buffers that the fused path reads until :meth:`thaw_folded`.
+        ``torch.export`` cannot trace :meth:`_folded` (its cache key reads
+        storage pointers and version counters, and the CUDA block is
+        packed on the host); it carries these buffers as constants of the
+        exported program. The state dict is unchanged."""
+        packed = self._folded()
+        for name, t in zip(_FROZEN, (*packed.weights, packed.blob)):
+            self.register_buffer(name, t, persistent=False)
+
+    def thaw_folded(self) -> None:
+        """Back to folding on the weights' versions (eager eval)."""
+        for name in _FROZEN:
+            self._buffers.pop(name, None)
+
     def _fused_eval(self, x):
         # NHWC view of the channels_last activation (a no-op copy there)
         x = x.permute(0, 2, 3, 1).contiguous()
-        y = fused_bottleneck_packed(x, self._folded())
+        if _FROZEN[0] in self._buffers:
+            packed = PackedWeights(
+                tuple(self._buffers[n] for n in _FROZEN[:6]),
+                self._buffers[_FROZEN[6]])
+        else:
+            packed = self._folded()
+        y = fused_bottleneck_packed(x, packed)
         return y.permute(0, 3, 1, 2)
 
+    @property
+    def fusable(self) -> bool:
+        """Whether eval forwards may take the fused kernel: ``fused_kernel``
+        on an identity block (no downsample, stride 1)."""
+        return (self.fused_kernel and self.downsample is None
+                and self.stride == 1)
+
     def forward(self, x):
-        if (self.fused_kernel and not self.training
-                and self.downsample is None and self.stride == 1
+        if (self.fusable and not self.training
                 and x.dtype == torch.bfloat16
                 and x.shape[1] == self.planes * self.expansion
                 and supports(x.device, x.shape[1], self.planes)):

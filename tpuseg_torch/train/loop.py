@@ -8,9 +8,16 @@ becomes the ``Trainer``'s ``model`` (weights and BN statistics),
 fusion over the eval scales in eval mode, so ``validate`` switches the
 same module to ``.eval()`` and back.
 
-Not ported yet, and raising instead of being skipped: image dumps (ROADMAP
-Queue 1 item 13), label relaxation (``loss.loss_type=relaxed`` and its
-border schedule, item 12), more than one device (item 10).
+Validation and ``evaluate_only`` dump images as ``tpuseg``'s do
+(``evaluation/dumper.py``: ``<logdir>/best_images`` and
+``<logdir>/eval_images`` or ``eval.result_dir``), with the full-resolution
+device reads only for the batches the dumper writes; ``eval.dump_topn``
+runs the two-pass failure gallery (``evaluation/topn.py``). The multi-host
+reductions of ``tpuseg`` wait with DDP (ROADMAP Queue 1 item 10).
+
+Not ported yet, and raising instead of being skipped: label relaxation
+(``loss.loss_type=relaxed`` and its border schedule, item 12), more than
+one device (item 10).
 """
 from __future__ import annotations
 
@@ -23,7 +30,9 @@ import torch
 
 from tpuseg_torch.config import Config, eval_model_config, infer_mscale
 from tpuseg_torch.convert import load_reference_checkpoint
+from tpuseg_torch.data.cityscapes_labels import TRAINID_TO_ID
 from tpuseg_torch.data.setup import setup_data
+from tpuseg_torch.evaluation.dumper import ImageDumper
 from tpuseg_torch.evaluation.inference import DRAIN_EVERY, EvalRunner
 from tpuseg_torch.evaluation.metrics import (
     eval_metrics_from_hist,
@@ -39,19 +48,6 @@ from tpuseg_torch.train.checkpoint import (
 from tpuseg_torch.train.optim import make_optimizer
 from tpuseg_torch.train.step import make_train_step
 from tpuseg_torch.utils.logging import Logger
-
-_DUMP_OPTIONS = ("dump_assets", "dump_all_images", "dump_for_auto_labelling",
-                 "dump_for_submission", "dump_topn")
-
-
-def _refuse_dumps(cfg: Config, extra: tuple = ()) -> None:
-    wanted = [o for o in _DUMP_OPTIONS if getattr(cfg.eval, o)] + list(extra)
-    if wanted:
-        raise NotImplementedError(
-            f"image dumps are not ported to tpuseg_torch yet (ROADMAP.md "
-            f"Queue 1 item 13): {', '.join(wanted)}; run with "
-            f"--set eval.dump_assets=false")
-
 
 def resolve_device(device: str) -> torch.device:
     """The run's device; asking for CUDA without a CUDA device raises."""
@@ -75,7 +71,6 @@ class Trainer:
             raise NotImplementedError(
                 "mesh.model_parallelism > 1 (spatial sharding) is not "
                 "ported to tpuseg_torch (ROADMAP.md Queue 1 item 10)")
-        _refuse_dumps(cfg)
         self.cfg = cfg
         self.logdir = logdir
         self.device = resolve_device(device)
@@ -270,11 +265,14 @@ class Trainer:
 
     def validate(self, epoch: int):
         """Score the val split with the model in eval mode (reference
-        validate(): train.py:536-597), then checkpoint. Returns the IoU
+        validate(): train.py:536-597), dump the images the dumper picks
+        into ``<logdir>/best_images``, then checkpoint. Returns the IoU
         metrics."""
         cfg = self.cfg
         runner = self.eval_runner
         n = cfg.dataset.num_classes
+        dumper = _make_dumper(cfg, self.val_loader,
+                              os.path.join(self.logdir, "best_images"))
         total_hist = np.zeros((n, n), np.float64)
         scale_hists: dict = {}
         loss_sum = loss_n = 0.0
@@ -296,7 +294,11 @@ class Trainer:
             for val_idx, batch in enumerate(self.val_loader):
                 if cfg.train.test_mode and val_idx >= 5:
                     break
-                _, acc = runner.run_batch(batch, need_assets=False, acc=acc)
+                need = dumper.wants(val_idx)
+                assets, acc = runner.run_batch(batch, need_assets=need,
+                                               acc=acc)
+                if need:
+                    _dump(dumper, batch, assets, val_idx)
                 images += len(batch["label"])
                 if (val_idx + 1) % DRAIN_EVERY == 0:
                     drain()
@@ -320,6 +322,8 @@ class Trainer:
         for s, hs in scale_hists.items():  # reference --log_msinf_to_tb
             val_scalars[f"mIoU_{s}x"] = eval_metrics_from_hist(hs).mean_iou
         self.logger.metric("val", val_scalars, self.step)
+        dumper.write_summaries(self.logger, self.step)
+        dumper.write_webpage()
         if metrics.mean_iou >= self.best_miou:
             self.best_miou = metrics.mean_iou
         path = self.ckpt.save(self.step, self.model, self.optimizer, epoch,
@@ -345,14 +349,37 @@ class Trainer:
         self.logger.msg(f"done; best mIoU {self.best_miou:.4f}")
 
 
+def _make_dumper(cfg: Config, val_loader, dump_dir: str,
+                 folder: bool = False) -> ImageDumper:
+    """The dumper ``cfg.eval`` asks for (tpuseg loop.py:300-308,
+    479-487); ``folder`` mode dumps every image."""
+    return ImageDumper(
+        val_len=len(val_loader), dump_dir=dump_dir,
+        palette=getattr(val_loader.dataset, "palette", None),
+        mean=cfg.dataset.mean, std=cfg.dataset.std,
+        trainid_to_id=TRAINID_TO_ID,
+        dump_all_images=cfg.eval.dump_all_images or folder,
+        dump_assets=cfg.eval.dump_assets,
+        dump_for_auto_labelling=cfg.eval.dump_for_auto_labelling,
+        dump_for_submission=cfg.eval.dump_for_submission)
+
+
+def _dump(dumper: ImageDumper, batch, assets, val_idx: int) -> None:
+    dumper.dump({"input_images": batch["image"],
+                 "gt_images": batch["label"],
+                 "img_names": batch["name"],
+                 "assets": assets}, val_idx)
+
+
 def evaluate_only(cfg: Config, logdir: str = "logs",
                   eval_mode: str = "val", checkpoint: Optional[str] = None,
                   device: str = "cuda"):
-    """Score ``cfg``'s model on the val (or train) split. ``checkpoint``
-    is a reference-format torch state dict; without it the weights are a
-    seeded fresh init (``train.seed``). Returns the IoU metrics."""
-    _refuse_dumps(cfg, ("eval_mode=folder (dumps every image)",)
-                  if eval_mode == "folder" else ())
+    """Score ``cfg``'s model on the val (or train) split, or run it over a
+    folder of images (``eval_mode="folder"``, no labels), dumping what
+    ``cfg.eval`` asks for (tpuseg loop.py:414-532). ``checkpoint`` is a
+    reference-format torch state dict; without it the weights are a
+    seeded fresh init (``train.seed``). Returns the IoU metrics, or None
+    when nothing is scored."""
     dev = resolve_device(device)
     logger = Logger(logdir)
 
@@ -371,7 +398,35 @@ def evaluate_only(cfg: Config, logdir: str = "logs",
         is_mscale=infer_mscale(cfg), ignore_label=cfg.dataset.ignore_label,
         criterion=get_val_loss(cfg), pad_multiple=cfg.eval.pad_multiple,
         mean=cfg.dataset.mean, std=cfg.dataset.std, device=dev)
-    calc_metrics = not cfg.eval.no_metrics
+    result_dir = cfg.eval.result_dir or os.path.join(logdir, "eval_images")
+
+    has_labels = eval_mode != "folder" and \
+        not cfg.eval.dump_for_auto_labelling and \
+        not cfg.eval.dump_for_submission
+    if cfg.eval.dump_topn:
+        if not has_labels:
+            raise ValueError(
+                "eval.dump_topn ranks images by ground-truth failures and "
+                "needs labels: not available in folder/auto-label/"
+                "submission modes (reference --dump_topn: train.py:163-168)")
+        from tpuseg_torch.evaluation.topn import validate_topn
+
+        # one sync an image, by design: pass 1 reads each image's matrix
+        return validate_topn(
+            val_loader, runner, cfg.dataset.num_classes,
+            result_dir=result_dir,
+            trainid_to_name=getattr(val_loader.dataset, "trainid_to_name",
+                                    None),
+            dump_topn=cfg.eval.dump_topn,
+            dump_topn_all=cfg.eval.dump_topn_all,
+            palette=getattr(val_loader.dataset, "palette", None),
+            mean=cfg.dataset.mean, std=cfg.dataset.std, log=logger.msg,
+            max_images=5 if cfg.train.test_mode else None)
+
+    # reference --no_metrics (train.py:420-421): dump without scoring
+    calc_metrics = has_labels and not cfg.eval.no_metrics
+    dumper = _make_dumper(cfg, val_loader, result_dir,
+                          folder=eval_mode == "folder")
 
     n = cfg.dataset.num_classes
     total_hist = np.zeros((n, n), np.float64)
@@ -386,13 +441,20 @@ def evaluate_only(cfg: Config, logdir: str = "logs",
             scale_hists[s] = scale_hists.get(s, 0) + v
         acc = runner.init_acc()
 
-    images = pixels = 0
+    images = pixels = dumped = 0
+    dump_s = 0.0
     t_first = None
     for val_idx, batch in enumerate(val_loader):
         if cfg.train.test_mode and val_idx >= 5:
             break
-        _, acc = runner.run_batch(batch, calc_metrics, need_assets=False,
-                                  acc=acc)
+        need = dumper.wants(val_idx)
+        assets, acc = runner.run_batch(batch, calc_metrics, need_assets=need,
+                                       acc=acc)
+        if need:
+            t0 = time.perf_counter()
+            _dump(dumper, batch, assets, val_idx)
+            dump_s += time.perf_counter() - t0
+            dumped += 1
         b, h, w = np.shape(batch["label"])[:3]
         images, pixels = images + b, pixels + b * h * w
         if val_idx == 0:
@@ -410,6 +472,10 @@ def evaluate_only(cfg: Config, logdir: str = "logs",
         logger.msg(f"eval: {images} images on {dev}; after the first: "
                    f"{(images - im_first) / dt:.4f} img/s, "
                    f"{(pixels - px_first) / dt / 1e6:.4f} Mpx/s")
+    logger.msg(f"dumped {dumped} batches to {dumper.dump_dir}: {dump_s:.3f} "
+               f"s on the host writing images")
+    dumper.write_summaries(logger, 0)
+    dumper.write_webpage()
     if not calc_metrics:
         return None
     metrics = eval_metrics_from_hist(total_hist)

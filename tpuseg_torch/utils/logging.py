@@ -3,8 +3,9 @@
 The port's copy of ``tpuseg/utils/logging.py``: messages to stdout + file,
 scalar metric streams to JSONL (machine-readable). Only the primary process
 writes. ``tpuseg``'s optional TensorBoard writer comes from ``flax``, which
-the port never imports: ``tensorboard=True`` raises until the training
-slice gives it a writer.
+the port never imports, and the card's machine has no ``tensorboard``
+package: ``tensorboard=True`` raises, and :meth:`Logger.image` is the
+no-op that ``tpuseg``'s is without a writer.
 """
 from __future__ import annotations
 
@@ -47,3 +48,8 @@ class Logger:
                 {"phase": phase, "step": int(step),
                  **{k: float(v) for k, v in metrics.items()}}) + "\n")
             self._metrics_f.flush()
+
+    def image(self, tag: str, img, step: int):
+        """HWC float [0,1] image to TensorBoard (reference: logx.add_image
+        via ImageDumper.write_summaries, utils/misc.py:388-417). A no-op:
+        the port has no TensorBoard writer."""
