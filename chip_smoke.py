@@ -13,7 +13,13 @@ on the card vs the CPU and remat on vs off ([train-parity]), the W48
 ``train_cityscapes.yaml`` run through the CLI's code for two short epochs
 over the same tree with both kernels in its validations ([train]), remat
 on vs off at W48 ([train-remat]) and a profile of one train step
-([train-profile]).
+([train-profile]). Then the ASPP-headed zoo: every DeepLabV3 / V3+ factory
+and HRNet_ASPP_OCR at full width, card vs CPU in f32 ([zoo-parity]) and
+at 1024x2048 in bf16 ([zoo-eval]); HRNet_ASPP_OCR's 3-scale eval through
+EvalRunner with both kernels ([aspp-ocr]); the
+``train_cityscapes_deepv3.yaml`` run through the CLI's code over the same
+tree, checkpointed and resumed ([deepv3-train]); and the same recipe with
+label relaxation ([relaxed]).
 
     python3 chip_smoke.py
 
@@ -21,14 +27,16 @@ Needs one CUDA device, ``nvcc`` and this checkout; exits non-zero otherwise
 and on any failed phase. The profiles' whole tables go to
 ``chiprun_out/profile_top.txt``, ``serve_profile_top.txt``,
 ``eager_profile_top.txt`` and ``train_profile_top.txt``,
-the eval and train runs' logs to ``chiprun_out/logs/`` and
-``chiprun_out/train/``; dumped images and the exported bundle stay in a
+the eval and train runs' logs to ``chiprun_out/logs/``,
+``chiprun_out/train/`` and ``chiprun_out/deepv3_train/``; checkpoints,
+dumped images and the exported bundle stay in a
 temporary directory. The line before the last is a JSON record of the
 kernels; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import math
@@ -500,29 +508,35 @@ def phase_main_path(card_info: str) -> dict:
     return launches
 
 
-def _calibrate_bn(model, x) -> None:
+def _calibrate_bn(model, x, run=None) -> None:
     """Set every BN's running statistics to the average batch statistics of
-    the image at the three eval scales, so that a random weight draw keeps
+    the image at the three eval scales (``run()``, by default MscaleOCR's
+    single-scale passes over ``x``), so that a random weight draw keeps
     activations O(1) through the W48 trunk. The BNs over the K class
-    proxies (f_object, f_down) keep unit statistics: the proxies are
-    averages over many pixels and nearly equal, so batch statistics over
-    them would blow up any later deviation of their inputs. For the same
-    reason each running variance is floored at a tenth of the channel's
-    second moment: a channel nearly constant over the pixels is not scaled
-    up more than ~3x its RMS."""
+    proxies (f_object, f_down) and over ASPP's pooled image (img_conv) keep
+    unit statistics: the proxies are averages over many pixels and nearly
+    equal, and the pooled image is one value a channel, so batch statistics
+    over them would blow up any later deviation of their inputs. For the
+    same reason each running variance is floored at a tenth of the
+    channel's second moment: a channel nearly constant over the pixels is
+    not scaled up more than ~3x its RMS."""
     from tpuseg_torch.ops import resize_x
 
     bns = [m for n, m in model.named_modules()
            if isinstance(m, torch.nn.BatchNorm2d)
-           and ".f_object." not in n and ".f_down." not in n]
+           and not any(k in n for k in (".f_object.", ".f_down.",
+                                        ".img_conv."))]
     for bn in bns:
         bn.reset_running_stats()
         bn.momentum = None  # cumulative average over the calibration passes
         bn.train()
     with torch.no_grad():
-        for scale in model.n_scales:
-            model.single_scale(resize_x(x.permute(0, 3, 1, 2), scale),
-                               need_aux=False)
+        if run is not None:
+            run()
+        else:
+            for scale in model.n_scales:
+                model.single_scale(resize_x(x.permute(0, 3, 1, 2), scale),
+                                   need_aux=False)
     for bn in bns:
         bn.eval()
         second = bn.running_mean ** 2 + bn.running_var
@@ -1234,10 +1248,12 @@ def _spy_packed_weights(counts: dict):
     return lambda: setattr(Bottleneck, "_folded", orig)
 
 
-def _kernels_at_trained_inputs(model, image) -> None:
+def _kernels_at_trained_inputs(model, image, forward=None,
+                               tag: str = "train") -> None:
     """Each kernel vs its plain version at the inputs a trained model gives
-    it on one image at the three eval scales (kernels off while the inputs
-    are captured). Raises past the bounds."""
+    it on one image at the three eval scales (``forward()``, by default the
+    MscaleOCR model's own 3-scale call on ``image``; kernels off while the
+    inputs are captured). Raises past the bounds."""
     from tpuseg_torch.kernels import bottleneck_fused as bk
     from tpuseg_torch.kernels import ocr_attention as ak
     from tpuseg_torch.models.hrnet import Bottleneck
@@ -1253,7 +1269,10 @@ def _kernels_at_trained_inputs(model, image) -> None:
             and bk.supports(image.device, 4 * m.planes, m.planes))]
     try:
         with torch.inference_mode():
-            model(image)
+            if forward is not None:
+                forward()
+            else:
+                model(image)
     finally:
         for h in hooks:
             h.remove()
@@ -1282,7 +1301,7 @@ def _kernels_at_trained_inputs(model, image) -> None:
                 worst[name] = max(worst[name], compare(got, want)[1])
     finally:
         _set_kernels(model, True)
-    log(f"[train] kernel vs plain version at the trained model's inputs "
+    log(f"[{tag}] kernel vs plain version at the model's inputs "
         f"(one val image, 3 scales, {len(seen)} calls): worst l1_rel "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
         + f" (bound < {BNECK_L1_TOL}); the unfused bf16 block vs the same "
@@ -1494,31 +1513,549 @@ def phase_train_remat(card_info: str) -> None:
         raise AssertionError(f"[train-remat] out of bounds: {bad}")
 
 
+# ------------------------------------------------- the ASPP-headed zoo
+
+DEEPV3_RECIPE = "tpuseg_torch/cli/recipes/train_cityscapes_deepv3.yaml"
+ZOO_HW = (256, 512)  # [zoo-parity]: card vs CPU, f32, TF32 off
+ZOO_PARITY_TOL = 1e-4  # logits, L1-relative
+ZOO_EVAL_CALLS = 3  # [zoo-eval]: forwards an arch; 2..N are timed
+RELAXED_TRAIN_IMAGES = 5  # [relaxed]: 5 steps an epoch at batch 1
+RELAXED_TOL = 1e-5  # relaxed_soft_nll card vs CPU, value and gradient
+
+
+def _zoo_archs() -> list:
+    """Every factory of this slice: the ten DeepLabV3 / V3+ factories and
+    HRNet_ASPP_OCR."""
+    from tpuseg_torch.models import PORTED
+
+    return [f"deepv3.{f}" for f in PORTED["deepv3"]] + [
+        "ocrnet.HRNet_ASPP_OCR"]
+
+
+def _zoo_model(arch: str, **sets):
+    """``arch`` at full width from get_model, with ``_condition``'s seeded
+    weights, on the CPU in eval mode."""
+    from tpuseg_torch.config import make_config
+    from tpuseg_torch.models import get_model
+
+    model = get_model(make_config({"model.arch": arch, **sets}))
+    _condition(model, seed=0)
+    return model.eval()
+
+
+def phase_zoo_parity(card_info: str) -> None:
+    """Every factory of the slice at full width, f32 with TF32 off, on one
+    seeded image: the logits on the card vs on the CPU (L1-relative held,
+    max|d| printed). cuDNN's dilated, grouped and depthwise convs against
+    the CPU's. Factories that build the same network from the same seed
+    (W38, W38I, DeepWV3Plus) share the CPU forward, their weights held
+    equal."""
+    x = torch.from_numpy(np.random.RandomState(5).randn(
+        1, *ZOO_HW, 3).astype(np.float32))
+    cpu = {}  # network -> (state dict, CPU logits)
+    bad = []
+    t_all = time.perf_counter()
+    for arch in _zoo_archs():
+        model = _zoo_model(arch, **{"model.compute_dtype": "float32"})
+        state = model.state_dict()
+        net = (type(model).__name__, tuple(
+            (k, tuple(v.shape)) for k, v in state.items()))
+        t0 = time.perf_counter()
+        if net in cpu and all(torch.equal(v, cpu[net][0][k])
+                              for k, v in state.items()):
+            want, how = cpu[net][1], "the same network's CPU forward"
+        else:
+            with torch.inference_mode():
+                want = model(x)["pred"]
+            cpu[net] = (state, want)
+            how = f"CPU forward {time.perf_counter() - t0:.1f} s"
+        model = model.cuda().to(memory_format=torch.channels_last)
+        with torch.inference_mode():
+            got = model(x.cuda())["pred"].cpu()
+        max_abs, l1 = compare(got, want)
+        ok = (got.shape == (1, *ZOO_HW, 19) and bool(torch.isfinite(got)
+                                                     .all())
+              and l1 <= ZOO_PARITY_TOL)
+        log(f"[zoo-parity] {arch} f32 1x{ZOO_HW[0]}x{ZOO_HW[1]}, card vs "
+            f"CPU ({how}): l1_rel {l1:.3e} (bound {ZOO_PARITY_TOL}), max|d| "
+            f"{max_abs:.3e}, max|logit| {float(want.abs().max()):.3f}, on "
+            f"{card_info}")
+        if not ok:
+            bad.append(arch)
+        del model, got
+        torch.cuda.empty_cache()
+    log(f"[zoo-parity] {len(_zoo_archs())} factories in "
+        f"{time.perf_counter() - t_all:.1f} s")
+    if bad:
+        raise AssertionError(f"[zoo-parity] out of bounds: {bad}")
+
+
+# bf16 3x3 convs of the zoo at their 1024x2048 shapes:
+# (what, C_in, C_out, dilation, feature H x W)
+ZOO_CONVS = (("HRNet_ASPP_OCR ASPP rate 12, 1.0x", 720, 256, 12, (256, 512)),
+             ("ResNet-50 layer4 conv2, dilation 4", 512, 512, 4, (128, 256)))
+
+
+def _conv_algorithms(card_info: str) -> None:
+    """Each of ZOO_CONVS timed with CUDA events (median of 2 calls after a
+    warm-up) under cuDNN's default algorithm choice and under
+    ``cudnn.benchmark``, on channels_last and on contiguous NCHW input."""
+    import torch.nn.functional as F
+
+    flag = torch.backends.cudnn.benchmark
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    try:
+        for what, cin, cout, d, (h, w) in ZOO_CONVS:
+            x = torch.randn(1, cin, h, w, device="cuda", generator=gen,
+                            dtype=torch.bfloat16)
+            wt = torch.randn(cout, cin, 3, 3, device="cuda", generator=gen,
+                             dtype=torch.bfloat16) * cin ** -0.5
+            row = []
+            for bench in (False, True):
+                torch.backends.cudnn.benchmark = bench
+                for fmt in (torch.channels_last, torch.contiguous_format):
+                    xf, wf = (x.contiguous(memory_format=fmt),
+                              wt.contiguous(memory_format=fmt))
+                    times = []
+                    with torch.inference_mode():
+                        for i in range(3):
+                            start = torch.cuda.Event(enable_timing=True)
+                            end = torch.cuda.Event(enable_timing=True)
+                            start.record()
+                            F.conv2d(xf, wf, padding=d, dilation=d)
+                            end.record()
+                            end.synchronize()
+                            if i:
+                                times.append(start.elapsed_time(end))
+                    row.append(f"{'benchmark' if bench else 'default'} "
+                               f"{'NHWC' if fmt is torch.channels_last else 'NCHW'}"
+                               f" {np.median(times):.3f} ms")
+            flops = 2.0 * h * w * cout * cin * 9
+            log(f"[zoo-eval] conv {what}: {cin}->{cout} 3x3 at {h}x{w} "
+                f"bf16 ({flops / BF16_FLOPS * 1e3:.3f} ms at the bf16 "
+                f"peak): " + ", ".join(row) + f"; {card_info}")
+    finally:
+        torch.backends.cudnn.benchmark = flag
+
+
+def phase_zoo_eval(card_info: str) -> None:
+    """Every factory of the slice at full width, bf16, eval, on one seeded
+    uint8 1024x2048 image normalized on the card: ms a forward over calls
+    2..N, peak device memory and parameter count printed; finite logits
+    of the image's shape held."""
+    from tpuseg_torch.ops import device_normalize
+
+    _conv_algorithms(card_info)
+    image, _, _ = _fake_scene(1001)
+    x = device_normalize(torch.from_numpy(image[None]).cuda())
+    bad = []
+    for arch in _zoo_archs():
+        model = _zoo_model(arch)
+        n_params = sum(p.numel() for p in model.parameters())
+        model = model.cuda().to(memory_format=torch.channels_last)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        with torch.inference_mode():
+            for _ in range(ZOO_EVAL_CALLS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pred = model(x)["pred"]
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        ok = pred.shape == (1, *SCENE_HW, 19) and bool(
+            torch.isfinite(pred).all())
+        log(f"[zoo-eval] {arch} bf16 1x1024x2048: "
+            f"{np.mean(times[1:]) * 1e3:.2f} ms a forward (calls "
+            f"2-{ZOO_EVAL_CALLS}; call 1 {times[0] * 1e3:.0f} ms), peak "
+            f"device memory {mem:.2f} GiB, {n_params} parameters, logits "
+            f"{tuple(pred.shape)} finite {ok}, on {card_info}")
+        if not ok:
+            bad.append(arch)
+        del model, pred
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"[zoo-eval] bad logits: {bad}")
+
+
+def _resize_nhwc(x, scale: float):
+    from tpuseg_torch.ops import resize_x
+
+    return resize_x(x.permute(0, 3, 1, 2), scale).permute(0, 2, 3, 1)
+
+
+def phase_aspp_ocr(card_info: str, root: str) -> dict:
+    """HRNet_ASPP_OCR at full width (W48 -> ASPP -> OCR, bf16) through
+    EvalRunner at the outer scales {1.0, 0.5, 2.0} over the seeded val
+    images with both kernels on, its BN statistics calibrated on one val
+    scene. Held: 3 attention and 9 bottleneck launches an image, each
+    kernel vs its plain version at the model's own inputs, kernels on vs
+    off (logit std and argmax agreement, as [on/off]). Printed: img/s.
+    Returns the launches of the val images' run."""
+    from tpuseg_torch.config import make_config
+    from tpuseg_torch.data.setup import setup_data
+    from tpuseg_torch.evaluation.inference import EvalRunner
+    from tpuseg_torch.kernels import bottleneck_fused as bk
+    from tpuseg_torch.kernels import ocr_attention as ak
+    from tpuseg_torch.models import get_model
+    from tpuseg_torch.ops import device_normalize
+
+    cfg = make_config({"model.arch": "ocrnet.HRNet_ASPP_OCR",
+                       "model.use_pallas": True, "model.fused_stage1": True,
+                       "dataset.name": "cityscapes",
+                       "dataset.cityscapes_dir": root})
+    model = get_model(cfg, seed=cfg.train.seed)
+    model = model.to("cuda", memory_format=torch.channels_last).eval()
+    scene, _, _ = _fake_scene(1000)
+    x = device_normalize(torch.from_numpy(scene[None]).cuda())
+
+    def three_scales():
+        return [model(_resize_nhwc(x, s)) for s in SCALES]
+
+    _set_kernels(model, False)
+    _calibrate_bn(model, x, run=three_scales)
+    _set_kernels(model, True)
+
+    _, loader, _ = setup_data(cfg, eval_mode="val", seed=cfg.train.seed)
+    batches = [b for _, b in zip(range(VAL_IMAGES), loader)]
+    runner = EvalRunner(model, 19, scales=(1.0, 0.5, 2.0), is_mscale=False,
+                        device="cuda")
+    acc = runner.init_acc()
+    ak.LAUNCHES = bk.LAUNCHES = 0
+    t0 = None
+    for i, batch in enumerate(batches):
+        _, acc = runner.run_batch(batch, need_assets=False, acc=acc)
+        if i == 0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+    hist = runner.drain(acc)[0]
+    img_s = (len(batches) - 1) / (time.perf_counter() - t0)
+    launches = {"ocr_attention": ak.LAUNCHES,
+                "bottleneck_fused": bk.LAUNCHES}
+    _hold_launches("aspp-ocr", launches, len(batches))
+    log(f"[aspp-ocr] HRNet_ASPP_OCR (W48 + ASPP + OCR) bf16, outer scales "
+        f"(1.0, 0.5, 2.0), {len(batches)} 1024x2048 val images: "
+        f"{img_s:.4f} img/s (images 2-{len(batches)}), {int(hist.sum())} "
+        f"pixels scored, on {card_info}")
+
+    _kernels_at_trained_inputs(model, x, forward=three_scales,
+                               tag="aspp-ocr")
+
+    # kernels on vs off, each against the same weights' f32 forward
+    # (kernels off): the kernels compute the block's and the attention's
+    # math with f32 accumulation, the unfused bf16 path rounds more, so the
+    # side with the kernels must be no farther from f32 than the other
+    image = torch.from_numpy(batches[0]["image"]).cuda()
+    label = torch.from_numpy(batches[0]["label"]).cuda()
+    ref = copy.deepcopy(model).float()
+    ref.backbone.dtype = torch.float32
+    _set_kernels(ref, False)
+    ref_runner = EvalRunner(ref, 19, scales=(1.0, 0.5, 2.0), is_mscale=False,
+                            device="cuda")
+    with torch.inference_mode():
+        f32 = ref_runner.forward(image, label, ref_runner.init_acc())[0]
+        logits = {}
+        for on in (True, False):
+            _set_kernels(model, on)
+            logits[on] = runner.forward(image, label, runner.init_acc())[0]
+    _set_kernels(model, True)
+    del ref, ref_runner
+
+    def agree(a, b):
+        return float((a.argmax(-1) == b.argmax(-1)).float().mean())
+
+    on, off = logits[True], logits[False]
+    std = float(off.std())
+    gap = {k: (agree(v, f32), compare(v, f32)[1]) for k, v in
+           (("on", on), ("off", off))}
+    log(f"[aspp-ocr] one val image, 3 scales, logit std {std:.4f} (bound "
+        f"1e-2..1e2); vs the f32 forward: kernels on argmax agreement "
+        f"{gap['on'][0]:.5f}, l1_rel {gap['on'][1]:.3e}; kernels off "
+        f"{gap['off'][0]:.5f}, {gap['off'][1]:.3e} (held: on no farther "
+        f"than off); on vs off argmax agreement {agree(on, off):.5f}, "
+        f"l1_rel {compare(on, off)[1]:.3e} (printed), on {card_info}")
+    if not (torch.isfinite(on).all() and torch.isfinite(off).all()):
+        raise AssertionError("[aspp-ocr] non-finite logits")
+    if not (1e-2 <= std <= 1e2 and gap["on"][1] <= gap["off"][1]
+            and gap["on"][0] >= gap["off"][0] - 0.005):
+        raise AssertionError(f"[aspp-ocr] on/off vs f32: std {std}, {gap}")
+    del model, runner
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _spy_drains(sums: list):
+    """Wrap EvalRunner.drain so that each drain leaves the number of pixels
+    its confusion matrix counts; returns the undo."""
+    from tpuseg_torch.evaluation import inference
+
+    orig = inference.EvalRunner.drain
+
+    def drain(self, acc):
+        out = orig(self, acc)
+        sums.append(int(out[0].sum()))
+        return out
+
+    inference.EvalRunner.drain = drain
+    return lambda: setattr(inference.EvalRunner, "drain", orig)
+
+
+def _run_train_cli(logdir: str, sets: list):
+    """``python -m tpuseg_torch.cli train --config DEEPV3_RECIPE`` in this
+    process, its output teed: -> (stdout text, wall seconds)."""
+    from tpuseg_torch.cli.main import main as cli_main
+
+    argv = ["train", "--config", DEEPV3_RECIPE, "--logdir", logdir]
+    for item in sets:
+        argv += ["--set", item]
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        rc = cli_main(argv)
+    if rc != 0:
+        raise AssertionError(f"tpuseg_torch.cli train returned {rc}")
+    return tee.buf.getvalue(), time.perf_counter() - t0
+
+
+def _train_losses(logdir: str, steps: int) -> list:
+    lines = [json.loads(x) for x in
+             Path(logdir, "metrics.jsonl").read_text().splitlines()]
+    losses = [x["loss"] for x in lines if x["phase"] == "train"]
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train losses {losses}")
+    return losses
+
+
+def _log_rates(tag: str, text: str, what: str) -> None:
+    for m in re.finditer(r"epoch (\d+): (\d+) steps on \S+, steps "
+                         r"2-\d+: ([\d.]+) s/step, ([\d.]+) img/s; host "
+                         r"data wait ([\d.]+) ms/step", text):
+        log(f"[{tag}] epoch {m.group(1)}: steps 2-{m.group(2)} "
+            f"{m.group(3)} s/step, {m.group(4)} img/s, host data wait "
+            f"{m.group(5)} ms/step ({what})")
+    for m in re.finditer(r"validate: (\d+) images on \S+ in ([\d.]+) "
+                         r"s, ([\d.]+) s/image", text):
+        log(f"[{tag}] validation: {m.group(1)} images, {m.group(3)} "
+            f"s/image ({what})")
+
+
+def phase_deepv3_train(card_info: str, root: str) -> None:
+    """``train_cityscapes_deepv3.yaml`` (DeepV3PlusW38 at full width, 800x800
+    crops, bf16, plain CE, SGD + poly 2, the WRN38 blocks remat'd, the
+    uint8 wire) through the CLI's code, bs 1, two epochs of 10 steps over
+    the seeded Cityscapes tree, each validated over 5 images at 1024x2048.
+    Held: finite losses, parameters and BN statistics moved, the checkpoint
+    written, equal to the trained module and resumed by a second run, and
+    each validation's confusion matrix counting every labelled pixel."""
+    from tpuseg_torch.cli.main import load_config
+    from tpuseg_torch.config import eval_model_config
+    from tpuseg_torch.data.setup import setup_data
+    from tpuseg_torch.models import get_model
+    from tpuseg_torch.train.checkpoint import CheckpointManager
+
+    out_dir = Path("chiprun_out/deepv3_train")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    logdir = str(Path(root, "deepv3_logs"))  # checkpoints stay out
+    sets = ["train.batch_size=1", "train.test_mode=true",
+            "train.log_every=1", f"dataset.cityscapes_dir={root}",
+            f"dataset.centroid_root={Path(root, 'centroids')}"]
+    recorded, sums = [], []
+    undo, undo_drain = _spy_validation(recorded), _spy_drains(sums)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        text, wall = _run_train_cli(logdir, sets)
+    finally:
+        undo()
+        undo_drain()
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name in ("log.txt", "metrics.jsonl"):
+        shutil.copy(Path(logdir, name), out_dir / name)
+    cfg = load_config(DEEPV3_RECIPE, sets)
+    losses = _train_losses(logdir, 20)
+    log(f"[deepv3-train] loss at steps 1..20: "
+        + " ".join(f"{v:.4f}" for v in losses))
+    what = (f"DeepV3PlusW38 800x800 bf16, bs 1, WRN38 blocks remat'd, "
+            f"{card_info}")
+    _log_rates("deepv3-train", text, what)
+    log(f"[deepv3-train] whole CLI run {wall:.1f} s, peak device memory "
+        f"{mem:.2f} GiB, on {card_info}")
+
+    # every labelled val pixel counted, once a validation
+    _, val_loader, _ = setup_data(cfg, eval_mode="val", seed=cfg.train.seed)
+    labelled = sum(int((np.asarray(b["label"]) != 255).sum())
+                   for _, b in zip(range(VAL_IMAGES), val_loader))
+    log(f"[deepv3-train] validation confusion matrices count {sums} pixels "
+        f"(want {labelled} labelled pixels each)")
+    if sums != [labelled, labelled]:
+        raise AssertionError(f"confusion matrices count {sums}")
+
+    model = recorded[-1][0].model
+    trained = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    init = get_model(eval_model_config(cfg),
+                     seed=cfg.train.seed).state_dict()
+    moved = {kind: [not torch.equal(trained[k], init[k])
+                    for k in init if k.endswith(suffix)]
+             for kind, suffix in (("parameters", ("weight", "bias")),
+                                  ("BN running stats",
+                                   ("running_mean", "running_var")))}
+    log("[deepv3-train] moved from the init: " + ", ".join(
+        f"{sum(v)}/{len(v)} {k}" for k, v in moved.items()))
+    if any(sum(v) < 0.99 * len(v) for v in moved.values()):
+        raise AssertionError("training left the weights in place")
+    ckpt = CheckpointManager(str(Path(logdir, cfg.train.checkpoint_dir)))
+    step = ckpt.latest_step()
+    saved = ckpt.restore()["model"]
+    same = all(torch.equal(saved[k], v) for k, v in trained.items())
+    del saved
+    del model, recorded
+    torch.cuda.empty_cache()
+    text, _ = _run_train_cli(logdir, sets)  # a restart of the same run
+    resumed = "resumed at epoch 2" in text
+    log(f"[deepv3-train] checkpoint step {step}, equal to the trained "
+        f"module: {same}; a second run resumed from it: {resumed}")
+    if step != 20 or not same or not resumed:
+        raise AssertionError(f"checkpoint step {step}, equal {same}, "
+                             f"resumed {resumed}")
+    torch.cuda.empty_cache()
+
+
+def _subset_tree(root: str, n_train: int) -> str:
+    """A Cityscapes tree beside ``root`` with its first ``n_train`` train
+    scenes and all its val scenes (symlinks)."""
+    sub = Path(root, f"subset_{n_train}")
+    for part in ("leftImg8bit_trainvaltest/leftImg8bit",
+                 "gtFine_trainvaltest/gtFine"):
+        for split, city in (("train", "aachen"), ("val", "lindau")):
+            src = Path(root, part, split, city)
+            dst = sub / part / split / city
+            dst.mkdir(parents=True)
+            names = sorted(src.iterdir())
+            if split == "train":
+                names = [f for f in names
+                         if int(f.name.split("_")[1]) < n_train]
+            for f in names:
+                (dst / f.name).symlink_to(f)
+    return str(sub)
+
+
+def phase_relaxed(card_info: str, root: str) -> None:
+    """The DeepLabV3+ recipe with label relaxation (loss.loss_type=relaxed,
+    dataset.jointwtborder, loss.reduce_border_epoch=0) through the CLI's
+    code, bs 1, two epochs of 5 steps. Held: epoch 1 (past the border
+    epoch) ran the inverted criterion on the reduce_border targets, every
+    loss finite; relaxed_soft_nll on the card vs the CPU at a seeded
+    (1, 512, 1024, 19) logit tensor, value and gradient. Printed: s/step,
+    the host label transform's ms a step and the target's bytes."""
+    from tpuseg_torch.cli.main import load_config
+    from tpuseg_torch.data.relaxed_labels import relaxed_onehot
+    from tpuseg_torch.data.setup import relaxed_label_transform
+    from tpuseg_torch.losses import relaxed_soft_nll
+
+    # the loss, card vs CPU
+    _, _, tid = _fake_scene(7)
+    target = torch.from_numpy(relaxed_onehot(tid[:512, :1024], 19)[None])
+    logits = torch.from_numpy(2 * np.random.RandomState(9).randn(
+        1, 512, 1024, 19).astype(np.float32))
+    for invert in (False, True):
+        vals, grads = [], []
+        for dev in ("cpu", "cuda"):
+            x = logits.detach().to(dev).requires_grad_(True)
+            loss = relaxed_soft_nll(x, target.to(dev), invert_border=invert)
+            loss.backward()
+            vals.append(loss.detach().double().cpu())
+            grads.append(x.grad.cpu())
+        v_rel = float((vals[1] - vals[0]).abs() / vals[0].abs())
+        g_rel = compare(grads[1], grads[0])[1]
+        log(f"[relaxed] relaxed_soft_nll (1, 512, 1024, 19) invert_border="
+            f"{invert}, card vs CPU: value rel {v_rel:.3e}, gradient l1_rel "
+            f"{g_rel:.3e} (bound {RELAXED_TOL}), on {card_info}")
+        if not (v_rel <= RELAXED_TOL and g_rel <= RELAXED_TOL):
+            raise AssertionError(f"[relaxed] card vs CPU: {v_rel}, {g_rel}")
+
+    tree = _subset_tree(root, RELAXED_TRAIN_IMAGES)
+    logdir = str(Path(root, "relaxed_logs"))
+    sets = ["train.batch_size=1", "train.test_mode=true",
+            "train.log_every=1", "loss.loss_type=relaxed",
+            "dataset.jointwtborder=true", "loss.reduce_border_epoch=0",
+            f"dataset.cityscapes_dir={tree}",
+            f"dataset.centroid_root={Path(root, 'centroids_subset')}"]
+    torch.cuda.reset_peak_memory_stats()
+    text, wall = _run_train_cli(logdir, sets)
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = _train_losses(logdir, 2 * RELAXED_TRAIN_IMAGES)
+    log(f"[relaxed] loss at steps 1..{len(losses)}: "
+        + " ".join(f"{v:.4f}" for v in losses))
+    flips = re.findall(r"epoch (\d): relaxed loss invert_border=(\w+), "
+                       r"label transform reduce_border=(\w+)", text)
+    log(f"[relaxed] border schedule (epoch, invert_border, reduce_border): "
+        f"{flips}")
+    if flips != [("0", "False", "False"), ("1", "True", "True")]:
+        raise AssertionError(f"[relaxed] border schedule {flips}")
+    _log_rates("relaxed", text, f"DeepV3PlusW38 800x800 bf16, relaxed loss, "
+               f"bs 1, {card_info}")
+
+    cfg = load_config(DEEPV3_RECIPE, sets)
+    crop = tid[:800, :800]
+    for reduce in (False, True):
+        fn = relaxed_label_transform(cfg, 255, reduce_border=reduce)
+        fn(crop)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            out = fn(crop)
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        log(f"[relaxed] host label transform reduce_border={reduce}: "
+            f"{ms:.1f} ms a 800x800 label (one a step at bs 1), target "
+            f"{out.shape} {out.dtype}, {out.nbytes / crop.size:.0f}x the "
+            f"uint8 label's bytes")
+    log(f"[relaxed] whole CLI run {wall:.1f} s, peak device memory "
+        f"{mem:.2f} GiB, on {card_info}")
+
+
+T_START = time.perf_counter()
+
+
+def timed(fn, *args):
+    """``fn(*args)``, its wall seconds logged."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[time] {fn.__name__} {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     name, card_info = phase_device()
-    phase_build()
-    records = phase_kernels(card_info)
-    launches = phase_main_path(card_info)
-    phase_on_off(card_info)
+    timed(phase_build)
+    records = timed(phase_kernels, card_info)
+    launches = timed(phase_main_path, card_info)
+    timed(phase_on_off, card_info)
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
         _write_fake_cityscapes(root)
         log(f"[data] wrote {TRAIN_IMAGES} train + {VAL_IMAGES} val "
             f"1024x2048 scenes in {time.perf_counter() - t0:.1f} s")
         model, ckpt = _conditioned_model(root)
-        dump_launches = phase_dump(card_info, root, model, ckpt)
-        serve_launches = phase_serve(card_info, root, model, ckpt)
+        dump_launches = timed(phase_dump, card_info, root, model, ckpt)
+        serve_launches = timed(phase_serve, card_info, root, model, ckpt)
         del model
         torch.cuda.empty_cache()
-        phase_summary(card_info)
-        phase_train_parity()
-        train_launches = phase_train(card_info, root)
+        timed(phase_summary, card_info)
+        timed(phase_train_parity)
+        train_launches = timed(phase_train, card_info, root)
+        timed(phase_train_remat, card_info)
+        timed(phase_zoo_parity, card_info)
+        timed(phase_zoo_eval, card_info)
+        aspp_ocr_launches = timed(phase_aspp_ocr, card_info, root)
+        timed(phase_deepv3_train, card_info, root)
+        timed(phase_relaxed, card_info, root)
     for r in records:
         r["launches"] = launches[r["name"]]
         r["dump_launches"] = dump_launches[r["name"]]
         r["serve_launches"] = serve_launches[r["name"]]
         r["train_launches"] = train_launches[r["name"]]
-    phase_train_remat(card_info)
+        r["aspp_ocr_launches"] = aspp_ocr_launches[r["name"]]
+    log(f"[total] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s")
     jax_mods = sorted({m.split(".")[0] for m in sys.modules}
                       & {"jax", "jaxlib", "flax", "optax", "orbax"})
     ref_mods = sorted(m for m in sys.modules if m.split(".")[0] == "tpuseg")

@@ -30,23 +30,42 @@ def random_variables(model, rng, *args, **kw):
     return randomize(flax_shapes(model, *args, **kw), rng)
 
 
-def randomize(variables, rng: np.random.RandomState):
+POOL = 4_194_301  # a prime
+
+
+def randomize(variables, rng):
     """Random weights that keep activations O(1), and random BN affine
     parameters and running statistics, so the weight mapping is
-    load-bearing (a swapped BN leaf or a wrong transpose shows)."""
+    load-bearing (a swapped BN leaf or a wrong transpose shows). ``rng`` is
+    a ``np.random.RandomState``, or a ``np.random.Generator`` for
+    full-width trunks: each leaf is then a window, at a random offset, of
+    one f32 draw of a prime length (so no period lines up with a kernel
+    axis), many times faster than a fresh draw of every weight."""
+    if isinstance(rng, np.random.Generator):
+        pool = rng.standard_normal(POOL, dtype=np.float32)
+
+        def randn(*shape):
+            n, off = int(np.prod(shape)), int(rng.integers(POOL))
+            reps = -(-(off + n) // POOL)
+            src = pool if reps == 1 else np.tile(pool, reps)
+            return src[off:off + n].reshape(shape)
+        real = np.float32
+    else:
+        randn, real = rng.randn, np.float64
+
     def param(path, a):
         name = getattr(path[-1], "key", "")
         if name == "kernel":
             fan_in = int(np.prod(a.shape[:-1]))
-            return rng.randn(*a.shape).astype(np.float32) / np.sqrt(fan_in)
+            return randn(*a.shape).astype(np.float32) / real(np.sqrt(fan_in))
         if name == "scale":
-            return (1.0 + 0.2 * rng.randn(*a.shape)).astype(np.float32)
-        return (0.1 * rng.randn(*a.shape)).astype(np.float32)  # biases
+            return (1.0 + 0.2 * randn(*a.shape)).astype(np.float32)
+        return (0.1 * randn(*a.shape)).astype(np.float32)  # biases
 
     def stat(path, a):
         if getattr(path[-1], "key", "") == "mean":
-            return (0.1 * rng.randn(*a.shape)).astype(np.float32)
-        return (0.7 + 0.3 * np.abs(rng.randn(*a.shape))).astype(np.float32)
+            return (0.1 * randn(*a.shape)).astype(np.float32)
+        return (0.7 + 0.3 * np.abs(randn(*a.shape))).astype(np.float32)
 
     out = {"params": jax.tree_util.tree_map_with_path(
         param, variables["params"])}
@@ -57,20 +76,21 @@ def randomize(variables, rng: np.random.RandomState):
 
 
 def load_into(module: torch.nn.Module, variables, flax_path: str = "",
-              torch_prefix: str = "") -> torch.nn.Module:
+              torch_prefix: str = "", key_fn=None) -> torch.nn.Module:
     """Load ``tpuseg`` variables into the port's module (strict) and put it
     in eval mode. A sub-module's variables are first placed at
     ``flax_path`` of the full model (e.g. "ocr/ocr_distri/object_context"),
-    where the key map names them, and ``torch_prefix`` (the port's name of
-    that sub-module, e.g. "ocr.ocr_distri_head.object_context_block.") is
-    stripped from the converted keys."""
+    where the key map (``key_fn``, default the ``ocrnet`` archs' map) names
+    them, and ``torch_prefix`` (the port's name of that sub-module, e.g.
+    "ocr.ocr_distri_head.object_context_block.") is stripped from the
+    converted keys."""
     trees = []
     for coll in ("params", "batch_stats"):
         tree = jax.tree.map(np.asarray, variables.get(coll, {}))
         for part in reversed([p for p in flax_path.split("/") if p]):
             tree = {part: tree}
         trees.append(tree)
-    sd = state_dict_from_flax(*trees)
+    sd = state_dict_from_flax(*trees, key_fn=key_fn)
     assert all(k.startswith(torch_prefix) for k in sd), torch_prefix
     sd = {k[len(torch_prefix):]: v for k, v in sd.items()}
     module.load_state_dict(sd, strict=True)

@@ -133,11 +133,6 @@ def test_get_loss_matches_tpuseg(loss_type):
     assert abs(float(val(t, lab)) - float(jval(j, jlab))) < 1e-5
 
 
-def test_relaxed_loss_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        get_loss(make_config({"loss.loss_type": "relaxed"}))
-
-
 # pools: f32 window sums and maxima, equal up to summation order
 @pytest.mark.parametrize("window,stride,pad", [(4, 4, 2), (3, 2, 1),
                                                (2, 2, 0)])

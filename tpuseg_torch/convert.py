@@ -2,57 +2,63 @@
 files.
 
 The port's parameter names are the NVIDIA reference's torch state-dict
-names, so ``tpuseg``'s own key map
-``tools/convert_torch_ckpt.py::flax_to_torch_key`` (reference -> flax) is
-used unchanged, as the JAX -> port map. That module's top level imports
-only numpy; it is loaded by file path so the port needs no ``tools``
-package.
+names, so the key map from ``tpuseg``'s flax paths to reference names
+(``tpuseg_torch/keymap.py``, the port's own copy of
+``tools/convert_torch_ckpt.py``'s) is also the JAX -> port map.
 """
 from __future__ import annotations
 
-import importlib.util
-from functools import lru_cache
-from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-CONVERTER = Path(__file__).resolve().parents[1] / "tools" / \
-    "convert_torch_ckpt.py"
-
-
-@lru_cache(maxsize=1)
-def _converter():
-    spec = importlib.util.spec_from_file_location("_tpuseg_convert_torch_ckpt",
-                                                  CONVERTER)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
+from tpuseg_torch.keymap import (
+    deepv3_key_fn,
+    flatten,
+    flax_to_torch_key,
+    strip_prefixes,
+)
+from tpuseg_torch.models.deepv3 import TRUNKS as DEEPV3_TRUNKS
 
 _PARAM_SUFFIX = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_SUFFIX = {"mean": "running_mean", "var": "running_var"}
 
 
-def state_dict_from_flax(params: dict, batch_stats: dict
+def arch_key_fn(arch: Optional[str]) -> Callable[[str], Optional[str]]:
+    """The key map of ``arch`` ("module.Factory"): ``deepv3_key_fn`` of the
+    factory's trunk for ``deepv3.*``, ``flax_to_torch_key`` for the
+    ``ocrnet`` archs (and for ``None``)."""
+    if arch is None or arch.startswith("ocrnet."):
+        return flax_to_torch_key
+    module, factory = arch.split(".")
+    if module == "deepv3" and factory in DEEPV3_TRUNKS:
+        return deepv3_key_fn(DEEPV3_TRUNKS[factory])
+    raise KeyError(f"no key map for arch {arch!r}")
+
+
+def state_dict_from_flax(params: dict, batch_stats: dict,
+                         arch: Optional[str] = None,
+                         key_fn: Optional[Callable] = None
                          ) -> Dict[str, torch.Tensor]:
-    """``tpuseg`` ``params`` / ``batch_stats`` trees (numpy leaves) -> the
-    port's state dict. Conv kernels go HWIO -> OIHW; every BN gets
-    ``num_batches_tracked = 0``. Raises on a path the key map cannot name."""
-    conv = _converter()
+    """``tpuseg`` ``params`` / ``batch_stats`` trees (numpy leaves) of
+    ``arch`` -> the port's state dict (``key_fn`` overrides the arch's map).
+    Conv kernels go HWIO -> OIHW (grouped and depthwise kernels too); every
+    BN gets ``num_batches_tracked = 0``. Raises on a path the map cannot
+    name."""
+    key_fn = key_fn or arch_key_fn(arch)
     out: Dict[str, torch.Tensor] = {}
     for tree, suffixes in ((params, _PARAM_SUFFIX),
                            (batch_stats, _STAT_SUFFIX)):
-        for flat, val in conv._flatten(tree).items():
+        for flat, val in flatten(tree).items():
             parts = flat.split("/")
             leaf, mod = parts[-1], parts[:-1]
             # flax BN lives in a module named 'bn' inside Norm: strip that
-            # innermost component only (convert_state_dict does the same)
+            # innermost component only (a Norm may itself be named 'bn')
             if mod and mod[-1] == "bn" and leaf in ("scale", "bias", "mean",
                                                     "var"):
                 mod = mod[:-1]
-            prefix = conv.flax_to_torch_key("/".join(mod))
+            prefix = key_fn("/".join(mod))
             if prefix is None or leaf not in suffixes:
                 raise KeyError(f"no torch name for tpuseg leaf {flat!r}")
             arr = np.asarray(val, np.float32)
@@ -79,4 +85,4 @@ def load_reference_checkpoint(model: torch.nn.Module, path: str) -> None:
 def strip_reference_prefixes(state: dict) -> dict:
     """The reference's own state-dict cleanups: a leading ``module.`` or
     ``model.``, and ``last_layer`` -> ``aux_head``."""
-    return _converter()._strip_prefixes(state)
+    return strip_prefixes(state)

@@ -2,15 +2,16 @@
 get_loss: loss/utils.py:40-67).
 
 ``criterion(logits, labels, do_rmi=...)`` callables over NHWC logits and NHW
-labels; ``do_rmi`` lets the aux loss skip the RMI term (reference:
-ocrnet.py:300-308). The val criterion is always plain CE, as in the
-reference.
+labels (``relaxed``: (B, H, W, C+1) multi-hot targets); ``do_rmi`` lets
+the aux loss skip the RMI term (reference: ocrnet.py:300-308). The val
+criterion is always plain CE, as in the reference.
 """
 from __future__ import annotations
 
 from functools import partial
 
 from tpuseg_torch.losses.ce import cross_entropy, image_weighted_cross_entropy
+from tpuseg_torch.losses.relaxed import relaxed_soft_nll
 from tpuseg_torch.losses.rmi import rmi_loss
 
 
@@ -35,10 +36,15 @@ def get_loss(cfg):
         def criterion(logits, labels, do_rmi=None):
             return cross_entropy(logits, labels, ignore_label=ignore)
     elif lc.loss_type == "relaxed":
-        raise NotImplementedError(
-            "loss.loss_type=relaxed (label relaxation, tpuseg/losses/"
-            "relaxed.py) is not ported to tpuseg_torch yet (ROADMAP.md "
-            "Queue 1 item 12)")
+        # over the (B, H, W, C+1) multi-hot targets of
+        # dataset.jointwtborder; the train loop sets invert_border past
+        # loss.reduce_border_epoch
+        def criterion(logits, relaxed_target, do_rmi=None,
+                      invert_border=False):
+            return relaxed_soft_nll(
+                logits, relaxed_target, upper_bound=lc.img_wt_bound,
+                batch_weighting=lc.batch_weighting,
+                invert_border=invert_border)
     else:
         raise ValueError(f"unknown loss_type {lc.loss_type}")
 

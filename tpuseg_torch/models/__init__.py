@@ -14,7 +14,16 @@ import torch
 from tpuseg_torch.models.layers import init_weights
 
 # archs ported so far, per module
-PORTED = {"ocrnet": ("HRNet", "HRNet_Mscale", "HRNet_Mscale_Tiny")}
+PORTED = {
+    "ocrnet": ("HRNet", "HRNet_ASPP_OCR", "HRNet_Mscale",
+               "HRNet_Mscale_Tiny"),
+    "deepv3": ("DeepV3PlusSRNX50", "DeepV3PlusR50", "DeepV3PlusSRNX101",
+               "DeepV3PlusW38", "DeepV3PlusW38I", "DeepV3PlusX71",
+               "DeepV3PlusEffB4", "DeepWV3Plus", "DeepV3R50",
+               "DeepV3PlusW38Tiny"),
+}
+# still to port: the attention-scale family (ROADMAP.md Queue 1)
+NOT_PORTED = ("mscale", "mscale2", "attnscale", "basic", "deeper")
 
 
 def get_model(cfg, seed: int = 0) -> torch.nn.Module:
@@ -27,8 +36,9 @@ def get_model(cfg, seed: int = 0) -> torch.nn.Module:
     if fn_name not in PORTED.get(module_name, ()):
         raise NotImplementedError(
             f"model.arch={cfg.model.arch!r} is not ported to tpuseg_torch "
-            f"yet (ROADMAP.md Queue 1, item 12 'the rest of the zoo'); "
-            f"ported: {sorted(f'{m}.{f}' for m, fs in PORTED.items() for f in fs)}")
+            f"yet (ROADMAP.md Queue 1: the attention-scale family, "
+            f"{', '.join(f'{m}.py' for m in NOT_PORTED)}); ported: "
+            f"{sorted(f'{m}.{f}' for m, fs in PORTED.items() for f in fs)}")
     mod = importlib.import_module(f"tpuseg_torch.models.{module_name}")
     model = getattr(mod, fn_name)(cfg)
     init_weights(model, torch.Generator().manual_seed(seed))

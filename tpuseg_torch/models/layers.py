@@ -6,12 +6,16 @@ is the dtype the trunk casts its input to (``model.compute_dtype``, bf16 by
 default), as ``tpuseg``'s ``dtype=`` convs do.
 
 Module names follow the NVIDIA reference's torch state-dict tree, so that
-``tools/convert_torch_ckpt.py::flax_to_torch_key`` maps ``tpuseg``'s
-variables onto this package's parameters unchanged.
+the key map ``tpuseg_torch/keymap.py`` (reference names <-> ``tpuseg``'s
+flax paths) maps ``tpuseg``'s variables onto this package's parameters.
 
-Eval only: ``Norm`` is ``nn.BatchNorm2d(eps=1e-5, momentum=0.1)``;
-``tpuseg``'s ``TorchBatchNorm`` copies torch's own running-variance update,
-so nothing needs porting for it.
+``Norm`` is ``nn.BatchNorm2d(eps=1e-5, momentum=0.1)``: ``tpuseg``'s
+``TorchBatchNorm`` copies torch's own running-variance update. One case
+differs: a training batch with one value per channel (ASPP's image-pool
+branch at batch 1), where ``nn.BatchNorm2d`` raises and ``tpuseg`` returns
+the BN bias (variance 0) and updates the running variance with Bessel's
+factor ``n / max(n - 1, 1) = 1`` (``tpuseg/models/layers.py:78-85``).
+``BatchNorm2d.forward`` computes that case explicitly.
 """
 from __future__ import annotations
 
@@ -23,12 +27,19 @@ import torch.nn.functional as F
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` whose f32 parameters are cast to the input's dtype."""
+    """``nn.Conv2d`` whose f32 parameters are cast to the input's dtype.
+    With ``nchw`` set, input and weight go to NCHW memory first (cuDNN
+    picks channels_last when either is; see ``heads.py`` for why)."""
+
+    nchw = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
-                        self.padding, self.dilation, self.groups)
+        weight = self.weight.to(x.dtype)
+        if self.nchw:
+            x, weight = x.contiguous(), weight.contiguous()
+        return F.conv2d(x, weight, bias, self.stride, self.padding,
+                        self.dilation, self.groups)
 
 
 def conv(cin: int, cout: int, kernel: int, stride: int = 1,
@@ -41,9 +52,39 @@ def conv(cin: int, cout: int, kernel: int, stride: int = 1,
                   dilation=dilation, bias=bias)
 
 
-def Norm(channels: int) -> nn.BatchNorm2d:
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` that also trains on one value per channel."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and x.numel() == x.shape[1]:
+            return self._single_value(x)
+        return super().forward(x)
+
+    def _single_value(self, x: torch.Tensor) -> torch.Tensor:
+        """``tpuseg``'s batch norm over n = 1 value per channel: mean = x,
+        variance 0 (so the output is the bias, and x gets no gradient, as
+        in ``tpuseg``), running variance updated with Bessel's factor 1."""
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3), keepdim=True)
+        xc = xf - mean
+        var = (xc * xc).mean(dim=(0, 2, 3), keepdim=True)
+        if self.track_running_stats:
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+                # momentum None: the cumulative average, as nn.BatchNorm2d
+                m = (1.0 / float(self.num_batches_tracked)
+                     if self.momentum is None else self.momentum)
+                self.running_mean.mul_(1 - m).add_(m * mean.flatten())
+                self.running_var.mul_(1 - m).add_(m * var.flatten())
+        y = xc * torch.rsqrt(var + self.eps)
+        if self.affine:
+            y = y * self.weight[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
+def Norm(channels: int, eps: float = 1e-5) -> BatchNorm2d:
     """Batch norm with torch defaults, as the reference (mynn.py:18-24)."""
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+    return BatchNorm2d(channels, eps=eps, momentum=0.1)
 
 
 def bn_relu(channels: int) -> nn.Sequential:
@@ -56,6 +97,15 @@ def ConvNormAct(cin: int, cout: int, kernel: int = 3, bias: bool = False
     """conv -> BNReLU as the reference's OCR blocks name it: the conv at
     ``.0`` and the BN at ``.1.0`` (tpuseg ``ConvNormAct``)."""
     return nn.Sequential(conv(cin, cout, kernel, bias=bias), bn_relu(cout))
+
+
+def SegHead(cin: int, out_ch: int, bot_ch: int = 256) -> nn.Sequential:
+    """3x3 -> BN -> relu -> 3x3 -> BN -> relu -> 1x1 classifier, as the
+    reference's make_seg_head Sequential (network/utils.py:320-329: convs
+    at ``.0``, ``.3``, ``.6``, BNs at ``.1``, ``.4``; tpuseg ``SegHead``)."""
+    return nn.Sequential(conv(cin, bot_ch, 3), Norm(bot_ch), nn.ReLU(),
+                         conv(bot_ch, bot_ch, 3), Norm(bot_ch), nn.ReLU(),
+                         conv(bot_ch, out_ch, 1))
 
 
 class AttnHead(nn.Module):

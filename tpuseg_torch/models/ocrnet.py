@@ -3,9 +3,6 @@
 Port of ``tpuseg/models/ocrnet.py`` (reference: network/ocrnet.py). Models
 take an NHWC image and return a dict of NHWC tensors, as ``tpuseg``'s do;
 inside they run NCHW-logical, channels_last. The loss is not in the model.
-
-``OCRNetASPP`` (``HRNet_ASPP_OCR``) waits for ``heads.py`` (ROADMAP
-Queue 1).
 """
 from __future__ import annotations
 
@@ -14,6 +11,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
+from tpuseg_torch.models.heads import make_aspp
 from tpuseg_torch.models.hrnet import HRNetSpec, HRNetV2, TINY_SPEC, W48_SPEC
 from tpuseg_torch.models.layers import AttnHead
 from tpuseg_torch.models.mscale_core import nscale_fuse, two_scale_fuse
@@ -51,6 +49,36 @@ class OCRNet(nn.Module):
         _, _, high = self.backbone(x)
         cls_out, aux_out, _ = self.ocr(high)
         # cast BEFORE the resize: the f32 island includes the interpolation
+        return {
+            "pred": to_nhwc(scale_as(cls_out.float(), x, self.align_corners)),
+            "aux": to_nhwc(scale_as(aux_out.float(), x, self.align_corners)),
+        }
+
+
+class OCRNetASPP(nn.Module):
+    """trunk -> ASPP -> OCR -> cls+aux (reference: network/ocrnet.py:
+    125-155). ``use_pallas`` and ``fused_stage1`` reach the OCR block and
+    the trunk as in ``OCRNet``."""
+
+    def __init__(self, num_classes: int, spec: HRNetSpec = W48_SPEC,
+                 mid_channels: int = 512, key_channels: int = 256,
+                 ocr_dropout: float = 0.05, align_corners: bool = False,
+                 use_pallas: bool = False, fused_stage1: bool = False,
+                 dtype=torch.bfloat16, remat=False):
+        super().__init__()
+        self.align_corners = align_corners
+        self.backbone = HRNetV2(spec, align_corners, dtype, fused_stage1,
+                                remat)
+        self.aspp, aspp_out_ch = make_aspp(spec.high_level_ch, 256,
+                                           output_stride=8,
+                                           align_corners=align_corners)
+        self.ocr = OCRBlock(aspp_out_ch, num_classes, mid_channels,
+                            key_channels, use_pallas, ocr_dropout)
+
+    def forward(self, x):
+        x = to_nchw(x)
+        _, _, high = self.backbone(x)
+        cls_out, aux_out, _ = self.ocr(self.aspp(high))
         return {
             "pred": to_nhwc(scale_as(cls_out.float(), x, self.align_corners)),
             "aux": to_nhwc(scale_as(aux_out.float(), x, self.align_corners)),
@@ -134,6 +162,11 @@ def _common(cfg):
 def HRNet(cfg):
     """Factory: plain HRNet-OCR (reference: ocrnet.py:337-338)."""
     return OCRNet(spec=W48_SPEC, **_common(cfg))
+
+
+def HRNet_ASPP_OCR(cfg):
+    """Factory: HRNet -> ASPP -> OCR (reference OCRNetASPP: ocrnet.py:125)."""
+    return OCRNetASPP(spec=W48_SPEC, **_common(cfg))
 
 
 def _mscale(cfg, spec, **over):

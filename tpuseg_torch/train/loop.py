@@ -15,14 +15,19 @@ device reads only for the batches the dumper writes; ``eval.dump_topn``
 runs the two-pass failure gallery (``evaluation/topn.py``). The multi-host
 reductions of ``tpuseg`` wait with DDP (ROADMAP Queue 1 item 10).
 
-Not ported yet, and raising instead of being skipped: label relaxation
-(``loss.loss_type=relaxed`` and its border schedule, item 12), more than
-one device (item 10).
+Label relaxation (``loss.loss_type=relaxed`` with
+``dataset.jointwtborder``) keeps ``tpuseg``'s border schedule: past
+``loss.reduce_border_epoch`` the criterion runs with ``invert_border`` and
+the train set's label transform becomes the ``reduce_border`` one.
+
+Not ported yet, and raising instead of being skipped: more than one device
+(item 10).
 """
 from __future__ import annotations
 
 import os
 import time
+from functools import partial
 from typing import Optional
 
 import numpy as np
@@ -31,7 +36,7 @@ import torch
 from tpuseg_torch.config import Config, eval_model_config, infer_mscale
 from tpuseg_torch.convert import load_reference_checkpoint
 from tpuseg_torch.data.cityscapes_labels import TRAINID_TO_ID
-from tpuseg_torch.data.setup import setup_data
+from tpuseg_torch.data.setup import relaxed_label_transform, setup_data
 from tpuseg_torch.evaluation.dumper import ImageDumper
 from tpuseg_torch.evaluation.inference import DRAIN_EVERY, EvalRunner
 from tpuseg_torch.evaluation.metrics import (
@@ -104,13 +109,7 @@ class Trainer:
         self.best_miou = 0.0
         self._restore()
 
-        lc = cfg.loss
-        self.train_step = make_train_step(
-            self.criterion, self.schedule, ocr_alpha=lc.ocr_alpha,
-            aux_rmi=lc.ocr_aux_rmi,
-            supervised_mscale_wt=lc.supervised_mscale_wt,
-            align_corners=cfg.model.align_corners,
-            mean=cfg.dataset.mean, std=cfg.dataset.std)
+        self.train_step = self._make_train_step(invert_border=False)
         self.eval_runner = EvalRunner(
             self.model, cfg.dataset.num_classes,
             scales=(cfg.eval.default_scale, *(cfg.eval.extra_scales or ())),
@@ -140,14 +139,33 @@ class Trainer:
             load_snapshot(cfg.train.snapshot, self.model, self.logger.msg)
             self.logger.msg(f"loaded snapshot {cfg.train.snapshot}")
 
+    def _make_train_step(self, invert_border: bool):
+        """The train step; with the relaxed loss its criterion carries the
+        border flip of REDUCE_BORDER_EPOCH (tpuseg loop.py:171-193)."""
+        cfg, lc = self.cfg, self.cfg.loss
+        crit = self.criterion
+        if lc.loss_type == "relaxed":
+            crit = partial(crit, invert_border=invert_border)
+        return make_train_step(
+            crit, self.schedule, ocr_alpha=lc.ocr_alpha,
+            aux_rmi=lc.ocr_aux_rmi,
+            supervised_mscale_wt=lc.supervised_mscale_wt,
+            align_corners=cfg.model.align_corners,
+            mean=cfg.dataset.mean, std=cfg.dataset.std)
+
     def _maybe_reduce_border_labels(self, invert: bool) -> None:
-        """The label side of label relaxation's REDUCE_BORDER_EPOCH flip
-        (tpuseg loop.py:195-211); it waits with ``relaxed``."""
-        if invert and self.cfg.dataset.jointwtborder:
-            raise NotImplementedError(
-                "loss.reduce_border_epoch with dataset.jointwtborder (label "
-                "relaxation) is not ported to tpuseg_torch yet (ROADMAP.md "
-                "Queue 1 item 12)")
+        """The label side of the REDUCE_BORDER_EPOCH flip: the train set's
+        label transform becomes the ``reduce_border`` one (half the window,
+        border pixels weighted 2; tpuseg loop.py:195-211). The loader's
+        threads read the dataset's transform at iteration time."""
+        cfg = self.cfg
+        if (invert and cfg.dataset.jointwtborder
+                and self.train_set is not None
+                and hasattr(self.train_set, "label_transform")):
+            ignore = getattr(self.train_set, "ignore_label",
+                             cfg.dataset.ignore_label)
+            self.train_set.label_transform = relaxed_label_transform(
+                cfg, ignore, reduce_border=True)
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
@@ -161,9 +179,17 @@ class Trainer:
         the device and is read back only at log points. Returns the epoch's
         mean loss."""
         cfg = self.cfg
-        self._maybe_reduce_border_labels(
-            cfg.loss.reduce_border_epoch != -1
-            and epoch > cfg.loss.reduce_border_epoch)
+        invert = (cfg.loss.reduce_border_epoch != -1
+                  and epoch > cfg.loss.reduce_border_epoch)
+        self._maybe_reduce_border_labels(invert)
+        train_step = (self._make_train_step(invert_border=True) if invert
+                      else self.train_step)
+        if cfg.loss.loss_type == "relaxed" or cfg.dataset.jointwtborder:
+            transform = getattr(self.train_set, "label_transform", None)
+            self.logger.msg(
+                f"epoch {epoch}: relaxed loss invert_border={invert}, label "
+                f"transform reduce_border="
+                f"{getattr(transform, 'keywords', {}).get('reduce_border')}")
         ts = self.train_set
         if ts is not None and hasattr(ts, "build_epoch"):
             # coarse-sampling epoch schedule (reference: train.py:433-445)
@@ -190,8 +216,8 @@ class Trainer:
             data_s += time.perf_counter() - t_wait
             device_batch = {"image": self._upload(batch["image"]),
                             "label": self._upload(batch["label"])}
-            metrics = self.train_step(self.model, self.optimizer,
-                                      device_batch, self.step)
+            metrics = train_step(self.model, self.optimizer, device_batch,
+                                 self.step)
             self.step += 1
             loss_sum = metrics["loss"] if loss_sum is None \
                 else loss_sum + metrics["loss"]
