@@ -19,7 +19,15 @@ at 1024x2048 in bf16 ([zoo-eval]); HRNet_ASPP_OCR's 3-scale eval through
 EvalRunner with both kernels ([aspp-ocr]); the
 ``train_cityscapes_deepv3.yaml`` run through the CLI's code over the same
 tree, checkpointed and resumed ([deepv3-train]); and the same recipe with
-label relaxation ([relaxed]).
+label relaxation ([relaxed]). Then the attention-scale family: one factory
+a class in [zoo-parity] and all 25 in [zoo-eval]; ``mscale.HRNet``'s
+3-scale eval through EvalRunner with the bottleneck kernel
+([mscale-eval]); ``mscale.DeepV3W38`` trained through the CLI's code on the
+DeepLabV3+ recipe ([mscale-train]); and over a seeded Mapillary tree,
+``eval_mapillary.yaml`` as shipped through ``evaluate_only`` with both
+kernels at 65 classes ([mapillary-eval]) and ``train_mapillary.yaml``
+through the CLI's code ([mapillary-train]); and whether ``grain`` imports
+([grain]).
 
     python3 chip_smoke.py
 
@@ -28,7 +36,9 @@ and on any failed phase. The profiles' whole tables go to
 ``chiprun_out/profile_top.txt``, ``serve_profile_top.txt``,
 ``eager_profile_top.txt`` and ``train_profile_top.txt``,
 the eval and train runs' logs to ``chiprun_out/logs/``,
-``chiprun_out/train/`` and ``chiprun_out/deepv3_train/``; checkpoints,
+``chiprun_out/train/``, ``chiprun_out/deepv3_train/``,
+``chiprun_out/mscale_train/`` and ``chiprun_out/mapillary_train/``, and
+every line this script logs to ``chiprun_out/chip_smoke.log``; checkpoints,
 dumped images and the exported bundle stay in a
 temporary directory. The line before the last is a JSON record of the
 kernels; the last line is ``{"ok": true, "device": {...}}``.
@@ -59,6 +69,12 @@ ON_OFF_REPS = 3  # timed images a side in each half of phase 5
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+    with open(LOG_COPY, "a") as f:
+        f.write(msg + "\n")
+
+
+# a copy of every log line: a run's captured output may keep only its end
+LOG_COPY = Path("chiprun_out/chip_smoke.log")
 
 
 def card() -> str:
@@ -442,11 +458,14 @@ def _run_cli(argv: list):
                                       "bottleneck_fused": bk.LAUNCHES}
 
 
-def _hold_launches(tag: str, launches: dict, forwards: int) -> None:
-    want = {"ocr_attention": 3 * forwards,
-            "bottleneck_fused": 9 * forwards}
-    log(f"[{tag}] launches {launches} (want {want}: 3 attention and 9 "
-        f"bottleneck calls a 3-scale forward, {forwards} forwards)")
+def _hold_launches(tag: str, launches: dict, forwards: int,
+                   per: tuple = (3, 9)) -> None:
+    """Held: ``per`` = (attention, bottleneck) launches a forward (an
+    image), ``forwards`` of them."""
+    want = {"ocr_attention": per[0] * forwards,
+            "bottleneck_fused": per[1] * forwards}
+    log(f"[{tag}] launches {launches} (want {want}: {per[0]} attention and "
+        f"{per[1]} bottleneck calls an image, {forwards} images)")
     if launches != want:
         raise AssertionError(f"[{tag}] launch counts {launches} != {want}")
 
@@ -1249,11 +1268,11 @@ def _spy_packed_weights(counts: dict):
 
 
 def _kernels_at_trained_inputs(model, image, forward=None,
-                               tag: str = "train") -> None:
+                               tag: str = "train", calls: int = 12) -> None:
     """Each kernel vs its plain version at the inputs a trained model gives
     it on one image at the three eval scales (``forward()``, by default the
     MscaleOCR model's own 3-scale call on ``image``; kernels off while the
-    inputs are captured). Raises past the bounds."""
+    inputs are captured), ``calls`` of them. Raises past the bounds."""
     from tpuseg_torch.kernels import bottleneck_fused as bk
     from tpuseg_torch.kernels import ocr_attention as ak
     from tpuseg_torch.models.hrnet import Bottleneck
@@ -1278,6 +1297,7 @@ def _kernels_at_trained_inputs(model, image, forward=None,
             h.remove()
     worst = {"bottleneck_fused": 0.0, "ocr_attention": 0.0}
     unfused = 0.0  # the model's unfused bf16 block vs the same reference
+    largest = {}  # each kernel's largest input
     try:
         with torch.inference_mode():
             for mod, args in seen:
@@ -1299,14 +1319,18 @@ def _kernels_at_trained_inputs(model, image, forward=None,
                     want = ak.object_attention_reference(q, key, val)
                     name = "ocr_attention"
                 worst[name] = max(worst[name], compare(got, want)[1])
+                if x.numel() > largest.get(name, (0,))[0]:
+                    largest[name] = (x.numel(), tuple(x.shape))
     finally:
         _set_kernels(model, True)
     log(f"[{tag}] kernel vs plain version at the model's inputs "
-        f"(one val image, 3 scales, {len(seen)} calls): worst l1_rel "
+        f"(one val image, {len(seen)} calls): worst l1_rel "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
-        + f" (bound < {BNECK_L1_TOL}); the unfused bf16 block vs the same "
+        + f" (bound < {BNECK_L1_TOL}); largest inputs "
+        + ", ".join(f"{k} {v[1]}" for k, v in largest.items())
+        + "; the unfused bf16 block vs the same "
         f"plain version {unfused:.3e} (not held)")
-    if len(seen) != 12 or max(worst.values()) >= BNECK_L1_TOL:
+    if len(seen) != calls or max(worst.values()) >= BNECK_L1_TOL:
         raise AssertionError(f"kernels at trained inputs: {worst}, "
                              f"{len(seen)} calls")
 
@@ -1518,27 +1542,31 @@ def phase_train_remat(card_info: str) -> None:
 DEEPV3_RECIPE = "tpuseg_torch/cli/recipes/train_cityscapes_deepv3.yaml"
 ZOO_HW = (256, 512)  # [zoo-parity]: card vs CPU, f32, TF32 off
 ZOO_PARITY_TOL = 1e-4  # logits, L1-relative
-ZOO_EVAL_CALLS = 3  # [zoo-eval]: forwards an arch; 2..N are timed
+ZOO_EVAL_CALLS = 2  # [zoo-eval]: forwards an arch; 2..N are timed
 RELAXED_TRAIN_IMAGES = 5  # [relaxed]: 5 steps an epoch at batch 1
 RELAXED_TOL = 1e-5  # relaxed_soft_nll card vs CPU, value and gradient
 
 
-def _zoo_archs() -> list:
-    """Every factory of this slice: the ten DeepLabV3 / V3+ factories and
-    HRNet_ASPP_OCR."""
+def _zoo_archs(parity: bool = False) -> list:
+    """The zoo: the ten DeepLabV3 / V3+ factories, HRNet_ASPP_OCR, and
+    the attention-scale family's 25 factories (``parity``: one a class)."""
     from tpuseg_torch.models import PORTED
 
+    family = FAMILY_PARITY if parity else [
+        f"{m}.{f}" for m in FAMILY for f in PORTED[m]]
     return [f"deepv3.{f}" for f in PORTED["deepv3"]] + [
-        "ocrnet.HRNet_ASPP_OCR"]
+        "ocrnet.HRNet_ASPP_OCR", *family]
 
 
-def _zoo_model(arch: str, **sets):
+def _zoo_model(arch: str, evaluate: bool = False, **sets):
     """``arch`` at full width from get_model, with ``_condition``'s seeded
-    weights, on the CPU in eval mode."""
-    from tpuseg_torch.config import make_config
+    weights, on the CPU in eval mode; ``evaluate``: as the eval entry
+    points build it (the mscale archs' n-scale fusion over eval.scales)."""
+    from tpuseg_torch.config import eval_model_config, make_config
     from tpuseg_torch.models import get_model
 
-    model = get_model(make_config({"model.arch": arch, **sets}))
+    cfg = make_config({"model.arch": arch, **sets})
+    model = get_model(eval_model_config(cfg) if evaluate else cfg)
     _condition(model, seed=0)
     return model.eval()
 
@@ -1555,7 +1583,7 @@ def phase_zoo_parity(card_info: str) -> None:
     cpu = {}  # network -> (state dict, CPU logits)
     bad = []
     t_all = time.perf_counter()
-    for arch in _zoo_archs():
+    for arch in _zoo_archs(parity=True):
         model = _zoo_model(arch, **{"model.compute_dtype": "float32"})
         state = model.state_dict()
         net = (type(model).__name__, tuple(
@@ -1584,7 +1612,7 @@ def phase_zoo_parity(card_info: str) -> None:
             bad.append(arch)
         del model, got
         torch.cuda.empty_cache()
-    log(f"[zoo-parity] {len(_zoo_archs())} factories in "
+    log(f"[zoo-parity] {len(_zoo_archs(parity=True))} factories in "
         f"{time.perf_counter() - t_all:.1f} s")
     if bad:
         raise AssertionError(f"[zoo-parity] out of bounds: {bad}")
@@ -1650,7 +1678,7 @@ def phase_zoo_eval(card_info: str) -> None:
     x = device_normalize(torch.from_numpy(image[None]).cuda())
     bad = []
     for arch in _zoo_archs():
-        model = _zoo_model(arch)
+        model = _zoo_model(arch, evaluate=True)
         n_params = sum(p.numel() for p in model.parameters())
         model = model.cuda().to(memory_format=torch.channels_last)
         torch.cuda.empty_cache()
@@ -2013,6 +2041,414 @@ def phase_relaxed(card_info: str, root: str) -> None:
         f"{mem:.2f} GiB, on {card_info}")
 
 
+# ----------------------------------------- the attention-scale family
+
+FAMILY = ("mscale", "mscale2", "attnscale", "basic", "deeper")
+# [zoo-parity]: one factory a class of the family (the fused-ASPP,
+# 2-channel V3Plus for MscaleV3Plus)
+FAMILY_PARITY = ("mscale.DeepV3W38Fuse2", "mscale.DeeperX71",
+                 "mscale.HRNet", "mscale.HRNet_ASP", "mscale2.DeepV3R50",
+                 "mscale2.HRNet", "attnscale.DeepV3R50",
+                 "attnscale.DeepV3R50BP", "basic.HRNet", "basic.HRNet_ASP",
+                 "deeper.DeeperW38")
+MAPILLARY_RECIPE = "tpuseg_torch/cli/recipes/eval_mapillary.yaml"
+MAPILLARY_TRAIN_RECIPE = "tpuseg_torch/cli/recipes/train_mapillary.yaml"
+# ragged Mapillary scenes, long side 2048-2304: pre_size 2177 resizes each
+MAPILLARY_VAL_HW = ((1536, 2048), (1728, 2304), (1600, 2176), (1536, 2304),
+                    (1700, 2240))
+MAPILLARY_TRAIN_HW = ((1536, 2048), (1728, 2304), (1632, 2176),
+                      (1536, 2240), (1664, 2208))
+
+
+def _mscale_forward(model, x, scales):
+    """The single-scale passes of an attention-scale model at ``scales``
+    (its ``_fwd`` over the resized NCHW image)."""
+    from tpuseg_torch.ops import resize_x
+
+    xc = x.permute(0, 3, 1, 2)
+    return [model._fwd(resize_x(xc, s)) for s in scales]
+
+
+def _on_off_vs_f32(tag: str, model, runner_kw: dict, image, label,
+                   card_info: str) -> None:
+    """Kernels on vs off, each against the same weights' f32 forward with
+    the kernels off, through EvalRunner on one image (as [aspp-ocr]):
+    held, the kernels' side no farther from f32 than the other."""
+    from tpuseg_torch.evaluation.inference import EvalRunner
+
+    ref = copy.deepcopy(model).float()
+    ref.backbone.dtype = torch.float32
+    _set_kernels(ref, False)
+    runner = EvalRunner(model, device="cuda", **runner_kw)
+    ref_runner = EvalRunner(ref, device="cuda", **runner_kw)
+    with torch.inference_mode():
+        f32 = ref_runner.forward(image, label, ref_runner.init_acc())[0]
+        logits = {}
+        for on in (True, False):
+            _set_kernels(model, on)
+            logits[on] = runner.forward(image, label, runner.init_acc())[0]
+    _set_kernels(model, True)
+    del ref, ref_runner
+
+    def agree(a, b):
+        return float((a.argmax(-1) == b.argmax(-1)).float().mean())
+
+    on, off = logits[True], logits[False]
+    std = float(off.std())
+    gap = {k: (agree(v, f32), compare(v, f32)[1]) for k, v in
+           (("on", on), ("off", off))}
+    log(f"[{tag}] one val image, logit std {std:.4f} (bound 1e-2..1e2); vs "
+        f"the f32 forward: kernels on argmax agreement {gap['on'][0]:.5f}, "
+        f"l1_rel {gap['on'][1]:.3e}; kernels off {gap['off'][0]:.5f}, "
+        f"{gap['off'][1]:.3e} (held: on no farther than off); on vs off "
+        f"argmax agreement {agree(on, off):.5f}, l1_rel "
+        f"{compare(on, off)[1]:.3e} (printed), on {card_info}")
+    if not (torch.isfinite(on).all() and torch.isfinite(off).all()):
+        raise AssertionError(f"[{tag}] non-finite logits")
+    if not (1e-2 <= std <= 1e2 and gap["on"][1] <= gap["off"][1]
+            and gap["on"][0] >= gap["off"][0] - 0.005):
+        raise AssertionError(f"[{tag}] on/off vs f32: std {std}, {gap}")
+
+
+def phase_mscale_eval(card_info: str, root: str) -> dict:
+    """``mscale.HRNet`` (MscaleBasic on the W48 trunk) at full width
+    through EvalRunner: n-scale fusion at {0.5, 1.0, 2.0} in the model,
+    bf16, ``model.fused_stage1`` on, its BN statistics calibrated on one
+    val scene, over the seeded val scenes. Held: 9 bottleneck and 0
+    attention launches an image, the kernel vs its plain version at the
+    model's own inputs, kernels on vs off against the f32 forward.
+    Printed: img/s and peak memory. Returns the launches."""
+    from tpuseg_torch.config import eval_model_config, make_config
+    from tpuseg_torch.data.setup import setup_data
+    from tpuseg_torch.evaluation.inference import EvalRunner
+    from tpuseg_torch.kernels import bottleneck_fused as bk
+    from tpuseg_torch.kernels import ocr_attention as ak
+    from tpuseg_torch.models import get_model
+    from tpuseg_torch.ops import device_normalize
+
+    cfg = eval_model_config(make_config({
+        "model.arch": "mscale.HRNet", "model.fused_stage1": True,
+        "dataset.name": "cityscapes", "dataset.cityscapes_dir": root}))
+    model = get_model(cfg, seed=cfg.train.seed)
+    model = model.to("cuda", memory_format=torch.channels_last).eval()
+    scene, _, _ = _fake_scene(1000)
+    x = device_normalize(torch.from_numpy(scene[None]).cuda())
+    three = lambda: _mscale_forward(model, x, SCALES)  # noqa: E731
+
+    _set_kernels(model, False)
+    _calibrate_bn(model, x, run=three)
+    _set_kernels(model, True)
+
+    _, loader, _ = setup_data(cfg, eval_mode="val", seed=cfg.train.seed)
+    batches = [b for _, b in zip(range(VAL_IMAGES), loader)]
+    runner = EvalRunner(model, 19, is_mscale=True, device="cuda")
+    acc = runner.init_acc()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ak.LAUNCHES = bk.LAUNCHES = 0
+    t0 = None
+    for i, batch in enumerate(batches):
+        _, acc = runner.run_batch(batch, need_assets=False, acc=acc)
+        if i == 0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+    hist = runner.drain(acc)[0]
+    img_s = (len(batches) - 1) / (time.perf_counter() - t0)
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {"ocr_attention": ak.LAUNCHES,
+                "bottleneck_fused": bk.LAUNCHES}
+    _hold_launches("mscale-eval", launches, len(batches), per=(0, 9))
+    log(f"[mscale-eval] mscale.HRNet (W48 MscaleBasic) bf16, n-scale "
+        f"{cfg.model.n_scales} in the model, {len(batches)} 1024x2048 val "
+        f"images: {img_s:.4f} img/s (images 2-{len(batches)}), peak device "
+        f"memory {mem:.2f} GiB, {int(hist.sum())} pixels scored, on "
+        f"{card_info}")
+    _profile(lambda: runner.run_batch(batches[1], need_assets=False,
+                                      acc=acc), card_info, top=8,
+             what="one mscale.HRNet image (3 scales)",
+             out_name="mscale_profile_top.txt", tag="mscale-eval")
+    _kernels_at_trained_inputs(model, x, forward=three, tag="mscale-eval",
+                               calls=9)
+    _on_off_vs_f32("mscale-eval", model, {"num_classes": 19},
+                   torch.from_numpy(batches[0]["image"]).cuda(),
+                   torch.from_numpy(batches[0]["label"]).cuda(), card_info)
+    del model, runner
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_mscale_train(card_info: str, root: str) -> None:
+    """``train_cityscapes_deepv3.yaml`` with ``model.arch=mscale.DeepV3W38``
+    (MscaleV3Plus on WRN38: two-scale fwd+bwd at 800x800, bf16, the WRN38
+    blocks remat'd) through the CLI's code, bs 1, two epochs of 10 steps
+    over the seeded Cityscapes tree, each validated over 5 images at
+    1024x2048 with n-scale fusion. Held: finite losses, every
+    ``scale_attn`` parameter moved, each validation's matrix counting every
+    labelled pixel. Printed: s/step, host data wait, peak memory."""
+    from tpuseg_torch.cli.main import load_config
+    from tpuseg_torch.config import eval_model_config
+    from tpuseg_torch.data.setup import setup_data
+    from tpuseg_torch.models import get_model
+
+    out_dir = Path("chiprun_out/mscale_train")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    logdir = str(Path(root, "mscale_logs"))  # checkpoints stay out
+    sets = ["model.arch=mscale.DeepV3W38", "train.batch_size=1",
+            "train.test_mode=true", "train.log_every=1",
+            f"dataset.cityscapes_dir={root}",
+            f"dataset.centroid_root={Path(root, 'centroids')}"]
+    recorded, sums = [], []
+    undo, undo_drain = _spy_validation(recorded), _spy_drains(sums)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        text, wall = _run_train_cli(logdir, sets)
+    finally:
+        undo()
+        undo_drain()
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name in ("log.txt", "metrics.jsonl"):
+        shutil.copy(Path(logdir, name), out_dir / name)
+    cfg = load_config(DEEPV3_RECIPE, sets)
+    losses = _train_losses(logdir, 20)
+    log(f"[mscale-train] loss at steps 1..20: "
+        + " ".join(f"{v:.4f}" for v in losses))
+    _log_rates("mscale-train", text, f"mscale.DeepV3W38 two-scale 800x800 "
+               f"bf16, bs 1, WRN38 blocks remat'd, {card_info}")
+    log(f"[mscale-train] whole CLI run {wall:.1f} s, peak device memory "
+        f"{mem:.2f} GiB, on {card_info}")
+    _, val_loader, _ = setup_data(cfg, eval_mode="val", seed=cfg.train.seed)
+    labelled = sum(int((np.asarray(b["label"]) != 255).sum())
+                   for _, b in zip(range(VAL_IMAGES), val_loader))
+    log(f"[mscale-train] validation confusion matrices count {sums} pixels "
+        f"(want {labelled} labelled pixels each)")
+    if sums != [labelled, labelled]:
+        raise AssertionError(f"confusion matrices count {sums}")
+    model = recorded[-1][0].model
+    trained = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    init = get_model(eval_model_config(cfg),
+                     seed=cfg.train.seed).state_dict()
+    attn = [k for k in init if k.startswith("scale_attn.")
+            and k.endswith(("weight", "bias"))]
+    moved = [k for k in attn if not torch.equal(trained[k], init[k])]
+    log(f"[mscale-train] scale_attn parameters moved from the init: "
+        f"{len(moved)}/{len(attn)}")
+    if not attn or len(moved) != len(attn):
+        raise AssertionError(f"scale_attn parameters left in place: "
+                             f"{sorted(set(attn) - set(moved))}")
+    del model, recorded
+    torch.cuda.empty_cache()
+
+
+def _write_fake_mapillary(root: str) -> None:
+    """A Mapillary tree: ``config.json`` with 66 labels (65 classes and the
+    ignore class), and seeded ragged training / validation scenes (JPEG
+    images, trainId PNG labels) built as ``_fake_scene``'s."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    rng = np.random.RandomState(66)
+    labels = [{"color": [int(c) for c in rng.randint(0, 256, 3)],
+               "readable": f"class {i}", "instances": False}
+              for i in range(66)]
+    Path(root).mkdir(parents=True, exist_ok=True)
+    Path(root, "config.json").write_text(json.dumps({"labels": labels}))
+    palette = np.array([lb["color"] for lb in labels], np.int16)
+    jobs = [("training", i, hw) for i, hw in enumerate(MAPILLARY_TRAIN_HW)] \
+        + [("validation", i, hw) for i, hw in enumerate(MAPILLARY_VAL_HW)]
+
+    def write(job):
+        split, i, (h, w) = job
+        r = np.random.RandomState(6600 + 100 * (split == "validation") + i)
+        ids = r.randint(0, 66, (-(-h // BLOCK), -(-w // BLOCK)))
+        tid = np.repeat(np.repeat(ids, BLOCK, 0), BLOCK, 1)[:h, :w]
+        noise = r.randint(-24, 25, (h, w, 3)).astype(np.int16)
+        image = np.clip(palette[tid] + noise, 0, 255).astype(np.uint8)
+        for sub in ("images", "labels"):
+            Path(root, split, sub).mkdir(parents=True, exist_ok=True)
+        Image.fromarray(image).save(Path(root, split, "images",
+                                         f"scene{i}.jpg"), quality=90)
+        Image.fromarray(tid.astype(np.uint8)).save(
+            Path(root, split, "labels", f"scene{i}.png"), compress_level=1)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, jobs))
+
+
+def phase_mapillary_eval(card_info: str, mroot: str) -> dict:
+    """``eval_mapillary.yaml`` as shipped (W48 HRNet_Mscale, 65 classes,
+    scales 0.25 / 0.5 / 1.0 / 2.0 in the model, flip, pre_size 2177,
+    ``pad_multiple`` 64, bf16 fusion, the uint8 wire) through
+    ``evaluate_only`` over the seeded Mapillary tree's 5 ragged val scenes,
+    with seeded weights whose BN statistics are calibrated on one of them.
+    Held: 8 attention and 24 bottleneck launches an image, each kernel vs
+    its plain version at the model's own inputs (K = 65, up to the 2.0x
+    shapes). Printed: img/s and peak memory. Returns the launches."""
+    from tpuseg_torch.cli.main import load_config
+    from tpuseg_torch.config import eval_model_config
+    from tpuseg_torch.data.setup import setup_data
+    from tpuseg_torch.evaluation.inference import make_eval_forward
+    from tpuseg_torch.kernels import bottleneck_fused as bk
+    from tpuseg_torch.kernels import ocr_attention as ak
+    from tpuseg_torch.models import get_model
+    from tpuseg_torch.ops import device_normalize
+    from tpuseg_torch.train.loop import evaluate_only
+
+    sets = [f"dataset.mapillary_dir={mroot}", "model.use_pallas=true",
+            "model.fused_stage1=true"]
+    cfg = load_config(MAPILLARY_RECIPE, sets)
+    _, loader, _ = setup_data(cfg, eval_mode="val", seed=cfg.train.seed)
+    first = next(iter(loader))
+    model = get_model(eval_model_config(cfg), seed=cfg.train.seed)
+    model = model.to("cuda", memory_format=torch.channels_last).eval()
+    x = device_normalize(torch.from_numpy(np.asarray(first["image"])).cuda())
+    _set_kernels(model, False)
+    _calibrate_bn(model, x)  # at the recipe's four scales
+    _set_kernels(model, True)
+    ckpt = str(Path(mroot, "calibrated.pth"))
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, ckpt)
+
+    logdir = str(Path(mroot, "eval_logs"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ak.LAUNCHES = bk.LAUNCHES = 0
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        metrics = evaluate_only(cfg, logdir=logdir, checkpoint=ckpt,
+                                device="cuda")
+    wall = time.perf_counter() - t0
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {"ocr_attention": ak.LAUNCHES,
+                "bottleneck_fused": bk.LAUNCHES}
+    n = len(MAPILLARY_VAL_HW)
+    _hold_launches("mapillary-eval", launches, n, per=(8, 24))
+    img_s, mpx_s = _rate(tee.buf.getvalue())
+    shapes = sorted({tuple(np.asarray(b["image"]).shape[1:3])
+                     for b in loader})
+    log(f"[mapillary-eval] W48 HRNet_Mscale, 65 classes, scales "
+        f"{cfg.model.n_scales} x flip, bf16 fusion, {n} ragged val scenes "
+        f"{list(MAPILLARY_VAL_HW)} -> pre_size {cfg.dataset.pre_size} "
+        f"{shapes}, pad_multiple {cfg.eval.pad_multiple}: {img_s} img/s, "
+        f"{mpx_s} Mpx/s (images 2-{n}), mIoU {metrics.mean_iou:.4f}, "
+        f"{int(metrics.hist.sum())} pixels scored, whole evaluate_only "
+        f"{wall:.1f} s, peak device memory {mem:.2f} GiB, on {card_info}")
+    labelled = sum(int((np.asarray(b["label"]) != 65).sum()) for b in loader)
+    if int(metrics.hist.sum()) != labelled:
+        raise AssertionError(f"[mapillary-eval] scored {metrics.hist.sum()}"
+                             f" pixels, {labelled} labelled")
+
+    # the same images again through EvalRunner: each padded shape's first
+    # image pays cuDNN's and the allocator's first calls, so time a
+    # second round
+    from tpuseg_torch.evaluation.inference import EvalRunner
+
+    runner = EvalRunner(model, 65, do_flip=True, ignore_label=65,
+                        pad_multiple=cfg.eval.pad_multiple, device="cuda")
+    batches = list(loader)
+    acc = runner.init_acc()
+    rounds = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in batches:
+            _, acc = runner.run_batch(batch, need_assets=False, acc=acc)
+        torch.cuda.synchronize()
+        rounds.append(len(batches) / (time.perf_counter() - t0))
+    log(f"[mapillary-eval] EvalRunner over the same {len(batches)} images "
+        f"twice: {rounds[0]:.4f} img/s, then {rounds[1]:.4f} img/s with "
+        f"every padded shape seen, on {card_info}")
+    _profile(lambda: runner.run_batch(batches[0], need_assets=False,
+                                      acc=acc), card_info, top=8,
+             what="one Mapillary image (4 scales x flip, 65 classes)",
+             out_name="mapillary_profile_top.txt", tag="mapillary-eval")
+
+    # the kernels at the model's inputs: one padded val image, flip x the
+    # four scales (24 bottleneck and 8 attention calls)
+    forward = make_eval_forward(model, 65, do_flip=True)
+    pad = cfg.eval.pad_multiple
+    h, w = np.asarray(first["image"]).shape[1:3]
+    image = np.pad(np.asarray(first["image"]),
+                   ((0, 0), (0, -h % pad), (0, -w % pad), (0, 0)))
+    label = np.pad(np.asarray(first["label"]),
+                   ((0, 0), (0, -h % pad), (0, -w % pad)),
+                   constant_values=65)
+    image, label = (torch.from_numpy(a).cuda() for a in (image, label))
+    acc = {"hist": torch.zeros((65, 65), dtype=torch.int64, device="cuda"),
+           "scale_hists": {}}
+    _kernels_at_trained_inputs(
+        model, x, forward=lambda: forward(image, label, acc, (h, w)),
+        tag="mapillary-eval", calls=32)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_mapillary_train(card_info: str, mroot: str) -> None:
+    """``train_mapillary.yaml`` as shipped (W48 HRNet_Mscale, 1024x1024
+    crops after pre_size 2177, gblur, class-uniform sampling at 0.5, RMI at
+    65 classes, SGD + poly, the uint8 wire) through the CLI's code, bs 1,
+    ``train.test_mode``, two epochs of 5 steps over the seeded Mapillary
+    tree. Held: finite losses, each validation's matrix counting every
+    labelled pixel. Printed: s/step, host data wait, peak memory."""
+    from tpuseg_torch.cli.main import load_config, main as cli_main
+    from tpuseg_torch.data.setup import setup_data
+
+    out_dir = Path("chiprun_out/mapillary_train")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    logdir = str(Path(mroot, "train_logs"))
+    sets = [f"dataset.mapillary_dir={mroot}", "train.batch_size=1",
+            "train.test_mode=true", "train.log_every=1",
+            f"dataset.centroid_root={Path(mroot, 'centroids')}"]
+    argv = ["train", "--config", MAPILLARY_TRAIN_RECIPE, "--logdir", logdir]
+    for item in sets:
+        argv += ["--set", item]
+    sums = []
+    undo = _spy_drains(sums)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            rc = cli_main(argv)
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"tpuseg_torch.cli train returned {rc}")
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name in ("log.txt", "metrics.jsonl"):
+        shutil.copy(Path(logdir, name), out_dir / name)
+    n = len(MAPILLARY_TRAIN_HW)
+    losses = _train_losses(logdir, 2 * n)
+    log(f"[mapillary-train] loss at steps 1..{2 * n}: "
+        + " ".join(f"{v:.4f}" for v in losses))
+    _log_rates("mapillary-train", tee.buf.getvalue(),
+               f"W48 HRNet_Mscale two-scale 1024x1024 bf16, RMI at 65 "
+               f"classes, gblur, bs 1, {card_info}")
+    cfg = load_config(MAPILLARY_TRAIN_RECIPE, sets)
+    _, val_loader, _ = setup_data(cfg, eval_mode="val", seed=cfg.train.seed)
+    labelled = sum(int((np.asarray(b["label"]) != 65).sum())
+                   for b in val_loader)
+    log(f"[mapillary-train] validation confusion matrices count {sums} "
+        f"pixels (want {labelled} each); whole CLI run {wall:.1f} s, peak "
+        f"device memory {mem:.2f} GiB, on {card_info}")
+    if sums != [labelled, labelled]:
+        raise AssertionError(f"confusion matrices count {sums}")
+    torch.cuda.empty_cache()
+
+
+def phase_grain() -> None:
+    """Whether ``grain`` (tpuseg's process loader) is importable here."""
+    import importlib.util
+
+    spec = importlib.util.find_spec("grain")
+    log(f"[grain] grain importable on this host: {spec is not None}"
+        + (f" ({spec.origin})" if spec is not None else ""))
+
+
 T_START = time.perf_counter()
 
 
@@ -2025,6 +2461,8 @@ def timed(fn, *args):
 
 
 def main() -> int:
+    LOG_COPY.parent.mkdir(exist_ok=True)
+    LOG_COPY.write_text("")
     name, card_info = phase_device()
     timed(phase_build)
     records = timed(phase_kernels, card_info)
@@ -2049,12 +2487,25 @@ def main() -> int:
         aspp_ocr_launches = timed(phase_aspp_ocr, card_info, root)
         timed(phase_deepv3_train, card_info, root)
         timed(phase_relaxed, card_info, root)
+        mscale_launches = timed(phase_mscale_eval, card_info, root)
+        timed(phase_mscale_train, card_info, root)
+    with tempfile.TemporaryDirectory() as mroot:
+        t0 = time.perf_counter()
+        _write_fake_mapillary(mroot)
+        log(f"[data] wrote a Mapillary tree of {len(MAPILLARY_TRAIN_HW)} "
+            f"training + {len(MAPILLARY_VAL_HW)} validation scenes in "
+            f"{time.perf_counter() - t0:.1f} s")
+        mapillary_launches = timed(phase_mapillary_eval, card_info, mroot)
+        timed(phase_mapillary_train, card_info, mroot)
+    phase_grain()
     for r in records:
         r["launches"] = launches[r["name"]]
         r["dump_launches"] = dump_launches[r["name"]]
         r["serve_launches"] = serve_launches[r["name"]]
         r["train_launches"] = train_launches[r["name"]]
         r["aspp_ocr_launches"] = aspp_ocr_launches[r["name"]]
+        r["mscale_launches"] = mscale_launches[r["name"]]
+        r["mapillary_launches"] = mapillary_launches[r["name"]]
     log(f"[total] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s")
     jax_mods = sorted({m.split(".")[0] for m in sys.modules}
                       & {"jax", "jaxlib", "flax", "optax", "orbax"})

@@ -6,7 +6,6 @@ port: the kernel's plain version), logits < 1e-4; a DeepV3PlusW38Tiny
 train step at batch 2 with dropout off (loss, BN running statistics,
 gradient tree by L1-relative); and the reference-checkpoint loader on a
 DeepLabV3+ state dict with a DataParallel prefix."""
-import flax.linen
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +13,8 @@ import pytest
 import torch
 
 import tpuseg.models.wider_resnet as jwrn
-from _torch_port import load_into, max_abs, random_variables
+from _torch_port import LinenWithoutDropout, load_into, max_abs
+from _torch_port import random_variables
 from _torch_port import set_threads
 from tpuseg.config import make_config as jax_make_config
 from tpuseg.losses.factory import get_loss as jax_get_loss
@@ -83,28 +83,6 @@ SETS = {"model.arch": "deepv3.DeepV3PlusW38Tiny",
         "loss.loss_type": "ce"}
 
 
-class _NoDropout(flax.linen.Module):
-    """flax Dropout's signature, computing the identity."""
-
-    rate: float
-    broadcast_dims: tuple = ()
-    deterministic: bool | None = None
-
-    @flax.linen.compact
-    def __call__(self, x):
-        return x
-
-
-class _LinenWithoutDropout:
-    """tpuseg's WRN38 module's view of flax.linen, dropout off (its rates
-    0.3 / 0.5 are fixed in the trunk)."""
-
-    Dropout = _NoDropout
-
-    def __getattr__(self, name):
-        return getattr(flax.linen, name)
-
-
 def _batch():
     """Continuous f32 pixels (the f32 wire). With integer uint8 pixels the
     two f32 backward passes differ by 3.5e-4 - 7.9e-4 in gradient L1 (two
@@ -135,7 +113,7 @@ def train_step_pair(port_dtype=torch.float32):
     loss_fn = jax_make_loss_fn(jm, criterion)
     batch = {"image": jnp.asarray(image), "label": jnp.asarray(label)}
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jwrn, "nn", _LinenWithoutDropout())
+        mp.setattr(jwrn, "nn", LinenWithoutDropout())
         (loss, mutated), grads = jax.jit(jax.value_and_grad(
             loss_fn, has_aux=True))(v["params"], v["batch_stats"], batch,
                                     jax.random.PRNGKey(0))

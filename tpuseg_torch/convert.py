@@ -14,27 +14,47 @@ import numpy as np
 import torch
 
 from tpuseg_torch.keymap import (
+    HEADS,
+    PLAIN_SCALE_ATTN,
     deepv3_key_fn,
     flatten,
     flax_to_torch_key,
+    seg_key_fn,
     strip_prefixes,
 )
+from tpuseg_torch.models import attnscale, basic, deeper, mscale, mscale2
 from tpuseg_torch.models.deepv3 import TRUNKS as DEEPV3_TRUNKS
+
+# each attention-scale module's factories: name -> (class, trunk, ...)
+_FAMILY = {"mscale": mscale.FACTORIES, "mscale2": mscale2.FACTORIES,
+           "attnscale": attnscale.FACTORIES, "basic": basic.FACTORIES,
+           "deeper": deeper.FACTORIES}
 
 _PARAM_SUFFIX = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_SUFFIX = {"mean": "running_mean", "var": "running_var"}
 
 
-def arch_key_fn(arch: Optional[str]) -> Callable[[str], Optional[str]]:
-    """The key map of ``arch`` ("module.Factory"): ``deepv3_key_fn`` of the
-    factory's trunk for ``deepv3.*``, ``flax_to_torch_key`` for the
-    ``ocrnet`` archs (and for ``None``)."""
+def arch_key_fn(arch: Optional[str], bn_head: Optional[bool] = None
+                ) -> Callable[[str], Optional[str]]:
+    """The key map of ``arch`` ("module.Factory"): ``flax_to_torch_key``
+    for the ``ocrnet`` archs (and for ``None``), ``seg_key_fn`` of the
+    factory's trunk and class otherwise. ``bn_head`` picks attnscale's
+    attention head where the config does (``model.attnscale_bn_head``;
+    None: the factory's default)."""
     if arch is None or arch.startswith("ocrnet."):
         return flax_to_torch_key
     module, factory = arch.split(".")
     if module == "deepv3" and factory in DEEPV3_TRUNKS:
         return deepv3_key_fn(DEEPV3_TRUNKS[factory])
-    raise KeyError(f"no key map for arch {arch!r}")
+    if factory not in _FAMILY.get(module, {}):
+        raise KeyError(f"no key map for arch {arch!r}")
+    cls, trunk = _FAMILY[module][factory][:2]
+    heads = HEADS[cls.__name__]
+    if bn_head is None:
+        bn_head = factory in ("DeepV3R50B", "DeepV3R50BP")
+    if module == "attnscale" and not bn_head:
+        heads = {**heads, **PLAIN_SCALE_ATTN}
+    return seg_key_fn(trunk, heads)
 
 
 def state_dict_from_flax(params: dict, batch_stats: dict,
@@ -46,7 +66,11 @@ def state_dict_from_flax(params: dict, batch_stats: dict,
     Conv kernels go HWIO -> OIHW (grouped and depthwise kernels too); every
     BN gets ``num_batches_tracked = 0``. Raises on a path the map cannot
     name."""
-    key_fn = key_fn or arch_key_fn(arch)
+    if key_fn is None:
+        # attnscale's head is the config's: the BN head has BN statistics
+        key_fn = arch_key_fn(arch, bn_head="scale_attn" in batch_stats
+                             or "conv" in params.get("scale_attn", {})
+                             .get("conv0", {}))
     out: Dict[str, torch.Tensor] = {}
     for tree, suffixes in ((params, _PARAM_SUFFIX),
                            (batch_stats, _STAT_SUFFIX)):

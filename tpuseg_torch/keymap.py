@@ -14,8 +14,13 @@ with what that map does not name:
   ``make_seg_head`` Sequential (network/utils.py:320-329: conv at ``.0``,
   BN ``.1``, conv ``.3``, BN ``.4``, classifier ``.6``), the same slots
   DeepLabV3+'s ``final`` uses;
-- the ``wrn38_tiny`` and ``xception71_tiny`` trunks (the full trunks'
-  names).
+- the attention-scale family (``mscale``, ``mscale2``, ``attnscale``,
+  ``basic``, ``deeper``), which ``tools/convert_torch_ckpt.py`` does not
+  map: a head map a model class (``HEADS``) over the same trunk, ASPP and
+  AttnHead maps, named after the reference modules ``tpuseg``'s
+  docstrings cite (``seg_key_fn``);
+- the ``wrn38_tiny``, ``xception71_tiny`` and ``hrnetv2_tiny`` trunks (the
+  full trunks' names).
 
 Each function maps a flax module path (``/``-separated) to the torch module
 prefix, or returns None for a path it does not name.
@@ -292,6 +297,7 @@ TRUNK_KEY_FNS = {
     # the HRNet ImageNet checkpoint uses the seg model's keys without
     # 'backbone.' ('model.'/'last_layer' go in strip_prefixes)
     "hrnetv2": _hrnet_torch_prefix,
+    "hrnetv2_tiny": _hrnet_torch_prefix,
 }
 
 
@@ -308,24 +314,66 @@ def trunk_key_fn(trunk_name: str, flax_prefix: str = "backbone/"):
     return key_fn
 
 
-# the seg head's slots: DeepLabV3+'s ``final`` (deepv3.py:40-93) and
-# make_seg_head (network/utils.py:320-329) are one Sequential layout
-_DEEPV3_HEAD = {
-    "bot_fine": "bot_fine", "bot_aspp": "bot_aspp",
-    "final1/conv": "final.0", "final1/norm": "final.1",
-    "final2/conv": "final.3", "final2/norm": "final.4",
-    "final_cls": "final.6",
-    "final/conv0/conv": "final.0", "final/conv0/norm": "final.1",
-    "final/conv1/conv": "final.3", "final/conv1/norm": "final.4",
-    "final/cls": "final.6",
+# the seg head's slots: make_seg_head (network/utils.py:320-329) puts its
+# convs at .0, .3, .6 and its BNs at .1, .4; DeepLabV3+'s ``final``
+# (deepv3.py:40-93) and the hard-coded attention stacks of mscale2.py and
+# attnscale.py share that layout
+_SEG_HEAD = {"conv0/conv": "0", "conv0/norm": "1", "conv1/conv": "3",
+             "conv1/norm": "4", "cls": "6"}
+
+# A head map: tpuseg's top-level flax module -> (the torch prefix, a map of
+# the rest of the path, or None for a bare conv at that prefix).
+_V3PLUS_HEAD = {
+    "bot_fine": ("bot_fine", None), "bot_aspp": ("bot_aspp", None),
+    "final1": ("final", {"conv": "0", "norm": "1"}.get),
+    "final2": ("final", {"conv": "3", "norm": "4"}.get),
+    "final_cls": ("final.6", None),
+    "final": ("final", _SEG_HEAD.get),
 }
+# the Deeper decoder (network/deeper.py:36-91, mscale.py:363-433):
+# ConvBnRelu's ``conv`` / ``bn`` (network/utils.py:144-159)
+_CONV_BN_RELU = {"conv": "conv", "norm": "bn"}.get
+_DEEPER_HEAD = {
+    "convs2": ("convs2", None), "convs4": ("convs4", None),
+    "conv_up1": ("conv_up1", None), "conv_up5": ("conv_up5", None),
+    "conv_up2": ("conv_up2", _CONV_BN_RELU),
+    "conv_up3": ("conv_up3", _CONV_BN_RELU),
+}
+_ASPP_HEAD = {"bot_aspp": ("bot_aspp", None), "final": ("final", _SEG_HEAD.get)}
+_ATTN_HEAD = {"scale_attn": ("scale_attn", _attn_head_torch_prefix)}
+
+# each model class's head map (its trunk and ``aspp/`` map apart)
+HEADS = {
+    "DeepV3Plus": _V3PLUS_HEAD,
+    "DeepV3": _V3PLUS_HEAD,
+    "MscaleV3Plus": {**_V3PLUS_HEAD, **_ATTN_HEAD},
+    "MscaleDeeper": {**_DEEPER_HEAD, **_ATTN_HEAD},
+    "MscaleBasic": {"cls_head": ("cls_head", _SEG_HEAD.get), **_ATTN_HEAD},
+    "MscaleASPP": {**_ASPP_HEAD, **_ATTN_HEAD},
+    # mscale2.py:193-202: the hard-coded Sequential
+    "MscaleV3Plus2": {**_V3PLUS_HEAD,
+                      "scale_attn": ("scale_attn", _SEG_HEAD.get)},
+    "Basic2": {"cls_head": ("cls_head", _SEG_HEAD.get), **_ATTN_HEAD},
+    # attnscale.py:84-93: the BN head as make_seg_head (PLAIN_SCALE_ATTN
+    # below is the other head)
+    "ASDV3P": {**_V3PLUS_HEAD, "scale_attn": ("scale_attn", _SEG_HEAD.get)},
+    "ASDV3P_Paired": {**_V3PLUS_HEAD,
+                      "scale_attn": ("scale_attn", _SEG_HEAD.get)},
+    "Basic": {"seg_head": ("seg_head", _SEG_HEAD.get)},
+    "ASPPModel": _ASPP_HEAD,
+    "DeeperS8": _DEEPER_HEAD,
+}
+# attnscale's plain attention head: conv0 - relu - cls (attnscale.py:95-99)
+PLAIN_SCALE_ATTN = {"scale_attn": ("scale_attn",
+                                   {"conv0": "0", "cls": "2"}.get)}
 
 
-def deepv3_key_fn(trunk: str):
-    """Full-model map for the ``deepv3`` archs (network/deepv3.py). ResNet
-    stems sit in get_resnet's positional ``layer0`` inside seg checkpoints
-    (utils.py:58-63)."""
-    trunk_fn = TRUNK_KEY_FNS[trunk]
+def seg_key_fn(trunk: str, heads: dict):
+    """Full-model map of a segmentation model: ``backbone/`` by the trunk's
+    map, ``aspp/`` by ``_aspp_torch_prefix``, the heads by ``heads`` (a
+    head map above). ResNet stems sit in get_resnet's positional
+    ``layer0`` inside seg checkpoints (utils.py:58-63)."""
+    trunk_fn = trunk_key_fn(trunk, flax_prefix="")
 
     def trunk_sub(p: str) -> str | None:
         sub = trunk_fn(p)
@@ -339,15 +387,27 @@ def deepv3_key_fn(trunk: str):
         return sub
 
     def key_fn(flax_path: str) -> str | None:
-        if flax_path.startswith("backbone/"):
-            sub = trunk_sub(flax_path[len("backbone/"):])
+        top, _, rest = flax_path.partition("/")
+        if top == "backbone":
+            sub = trunk_sub(rest)
             return f"backbone.{sub}" if sub else None
-        if flax_path.startswith("aspp/"):
-            sub = _aspp_torch_prefix(flax_path[len("aspp/"):])
+        if top == "aspp":
+            sub = _aspp_torch_prefix(rest)
             return f"aspp.{sub}" if sub else None
-        return _DEEPV3_HEAD.get(flax_path)
+        if top not in heads:
+            return None
+        prefix, sub_fn = heads[top]
+        if sub_fn is None:
+            return None if rest else prefix
+        sub = sub_fn(rest)
+        return f"{prefix}.{sub}" if sub else None
 
     return key_fn
+
+
+def deepv3_key_fn(trunk: str):
+    """Full-model map for the ``deepv3`` archs (network/deepv3.py)."""
+    return seg_key_fn(trunk, _V3PLUS_HEAD)
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,7 @@ import torch
 
 from tpuseg_torch.models.layers import init_weights
 
-# archs ported so far, per module
+# the archs, per module: every factory of tpuseg's
 PORTED = {
     "ocrnet": ("HRNet", "HRNet_ASPP_OCR", "HRNet_Mscale",
                "HRNet_Mscale_Tiny"),
@@ -21,9 +21,15 @@ PORTED = {
                "DeepV3PlusW38", "DeepV3PlusW38I", "DeepV3PlusX71",
                "DeepV3PlusEffB4", "DeepWV3Plus", "DeepV3R50",
                "DeepV3PlusW38Tiny"),
+    "mscale": ("DeepV3R50", "DeepV3W38", "DeepV3W38Fuse", "DeepV3W38Fuse2",
+               "DeepV3X71", "DeepV3EffB4", "DeepV3EffB4Fuse", "DeeperW38",
+               "DeeperX71", "DeeperEffB4", "Basic", "HRNet", "HRNet_ASP",
+               "DeepV3W38Tiny"),
+    "mscale2": ("DeepV3R50", "DeepV3W38", "HRNet"),
+    "attnscale": ("DeepV3R50", "DeepV3R50B", "DeepV3W38", "DeepV3R50BP"),
+    "basic": ("HRNet", "HRNet_ASP"),
+    "deeper": ("DeeperW38", "DeeperX71"),
 }
-# still to port: the attention-scale family (ROADMAP.md Queue 1)
-NOT_PORTED = ("mscale", "mscale2", "attnscale", "basic", "deeper")
 
 
 def get_model(cfg, seed: int = 0) -> torch.nn.Module:
@@ -34,11 +40,9 @@ def get_model(cfg, seed: int = 0) -> torch.nn.Module:
             cfg.model, remat=tuple(cfg.model.remat_stages)))
     module_name, fn_name = cfg.model.arch.split(".")
     if fn_name not in PORTED.get(module_name, ()):
-        raise NotImplementedError(
-            f"model.arch={cfg.model.arch!r} is not ported to tpuseg_torch "
-            f"yet (ROADMAP.md Queue 1: the attention-scale family, "
-            f"{', '.join(f'{m}.py' for m in NOT_PORTED)}); ported: "
-            f"{sorted(f'{m}.{f}' for m, fs in PORTED.items() for f in fs)}")
+        archs = sorted(f"{m}.{f}" for m, fs in PORTED.items() for f in fs)
+        raise ValueError(f"unknown model.arch={cfg.model.arch!r}; the archs "
+                         f"are {archs}")
     mod = importlib.import_module(f"tpuseg_torch.models.{module_name}")
     model = getattr(mod, fn_name)(cfg)
     init_weights(model, torch.Generator().manual_seed(seed))

@@ -21,12 +21,14 @@ from tpuseg_torch.ops import resize_bilinear, scale_as
 class DeepV3Plus(nn.Module):
     """trunk -> ASPP -> bot_aspp (1x1 -> 256) || bot_fine (s2 -> 48) ->
     concat -> 3-conv final head -> upsample (reference: deepv3.py:40-93).
-    Output stride 8."""
+    Output stride 8. The attention-scale models on this decoder
+    (``mscale``, ``mscale2``, ``attnscale``) subclass it; ``bot_ch`` is
+    the width of their ``final`` head (the reference's SEGATTN_BOT_CH)."""
 
     def __init__(self, num_classes: int, trunk: str = "wrn38",
                  use_dpc: bool = False, align_corners: bool = False,
                  remat=False, fused_stage1: bool = False,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, bot_ch: int = 256):
         super().__init__()
         self.align_corners = align_corners
         self.backbone, s2_ch, _, high_ch = get_trunk(
@@ -38,17 +40,27 @@ class DeepV3Plus(nn.Module):
         self.bot_fine = conv(s2_ch, 48, 1)
         self.bot_aspp = conv(aspp_out_ch, 256, 1)
         # the reference's final Sequential has make_seg_head's layout
-        self.final = SegHead(256 + 48, num_classes, 256)
+        self.final = SegHead(256 + 48, num_classes, bot_ch)
 
-    def forward(self, x):
-        x = to_nchw(x)
+    def features(self, x):
+        """NCHW image -> (the trunk's s2 tap, ASPP features)."""
         s2, _, high = self.backbone(x)
-        conv_aspp = self.bot_aspp(self.aspp(high))
+        return s2, self.aspp(high)
+
+    def decode(self, x, s2, aspp):
+        """-> (f32 logits at ``x``'s size, the decoder's concat ``cat_s4``
+        the attention heads read)."""
+        conv_aspp = self.bot_aspp(aspp)
         conv_s2 = self.bot_fine(s2)
         conv_aspp = resize_bilinear(conv_aspp, s2.shape[-2:],
                                     self.align_corners).to(conv_s2.dtype)
-        y = self.final(torch.cat([conv_s2, conv_aspp], dim=1))
-        return {"pred": to_nhwc(scale_as(y.float(), x, self.align_corners))}
+        cat_s4 = torch.cat([conv_s2, conv_aspp], dim=1)
+        out = scale_as(self.final(cat_s4).float(), x, self.align_corners)
+        return out, cat_s4
+
+    def forward(self, x):
+        x = to_nchw(x)
+        return {"pred": to_nhwc(self.decode(x, *self.features(x))[0])}
 
 
 class DeepV3(nn.Module):

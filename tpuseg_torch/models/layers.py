@@ -99,6 +99,20 @@ def ConvNormAct(cin: int, cout: int, kernel: int = 3, bias: bool = False
     return nn.Sequential(conv(cin, cout, kernel, bias=bias), bn_relu(cout))
 
 
+class ConvBnRelu(nn.Module):
+    """conv -> BN -> relu as the reference's ConvBnRelu names it (``conv``,
+    ``bn``; network/utils.py:144-159), for the Deeper decoders'
+    ``conv_up2`` / ``conv_up3`` (tpuseg ``ConvNormAct``)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, padding: int):
+        super().__init__()
+        self.conv = conv(cin, cout, kernel, padding=padding)
+        self.bn = Norm(cout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.bn(self.conv(x)))
+
+
 def SegHead(cin: int, out_ch: int, bot_ch: int = 256) -> nn.Sequential:
     """3x3 -> BN -> relu -> 3x3 -> BN -> relu -> 1x1 classifier, as the
     reference's make_seg_head Sequential (network/utils.py:320-329: convs

@@ -22,10 +22,15 @@ ForwardFn = Callable[[torch.Tensor], Dict[str, torch.Tensor]]
 
 
 def two_scale_fuse(fwd: ForwardFn, x_1x: torch.Tensor, lo_scale: float = 0.5,
-                   align_corners: bool = False) -> Dict[str, torch.Tensor]:
-    """Fused two-scale forward (reference: ocrnet.py:264-327)."""
+                   align_corners: bool = False,
+                   fwd_hi=None) -> Dict[str, torch.Tensor]:
+    """Fused two-scale forward (reference: ocrnet.py:264-327).
+
+    ``fwd_hi(x, lo_out)``, when given, computes the high-scale pass with
+    the low-scale output at hand (mscale's ``fuse_aspp``, reference:
+    mscale.py:182-220); otherwise ``fwd`` runs at both scales."""
     lo = fwd(resize_x(x_1x, lo_scale, align_corners))
-    hi = fwd(x_1x)
+    hi = fwd_hi(x_1x, lo) if fwd_hi is not None else fwd(x_1x)
 
     pred_05x = lo["cls_out"].float()
     attn = lo["logit_attn"].float()
