@@ -26,18 +26,29 @@ a class in [zoo-parity] and all 25 in [zoo-eval]; ``mscale.HRNet``'s
 DeepLabV3+ recipe ([mscale-train]); and over a seeded Mapillary tree,
 ``eval_mapillary.yaml`` as shipped through ``evaluate_only`` with both
 kernels at 65 classes ([mapillary-eval]) and ``train_mapillary.yaml``
-through the CLI's code ([mapillary-train]); and whether ``grain`` imports
-([grain]).
+through the CLI's code ([mapillary-train]). Then data-parallel training:
+the process loader against the threaded one and the DeepLabV3+ recipe's
+data wait through it ([loader]); a tiny f32 step as two gloo ranks on the
+card vs one process ([ddp-parity]); ``train_cityscapes.yaml`` at W48 as two
+ranks on the card under ``torch.distributed.run`` with the CLI's
+``--multi-host``, stopped, resumed, both kernels in each rank's
+validations ([ddp-train]); and one NCCL rank ([ddp-nccl]).
 
     python3 chip_smoke.py
 
 Needs one CUDA device, ``nvcc`` and this checkout; exits non-zero otherwise
-and on any failed phase. The profiles' whole tables go to
+and on any failed phase. ``--child`` runs one process of its own
+multi-process phases; each such process runs in a process group of its
+own, killed and waited for when the phase ends, and no process this
+script starts outlives it. The profiles' whole tables go to
 ``chiprun_out/profile_top.txt``, ``serve_profile_top.txt``,
 ``eager_profile_top.txt`` and ``train_profile_top.txt``,
 the eval and train runs' logs to ``chiprun_out/logs/``,
 ``chiprun_out/train/``, ``chiprun_out/deepv3_train/``,
-``chiprun_out/mscale_train/`` and ``chiprun_out/mapillary_train/``, and
+``chiprun_out/mscale_train/``, ``chiprun_out/mapillary_train/``, the
+child processes' logs to ``chiprun_out/loader/``,
+``chiprun_out/ddp_parity/``, ``chiprun_out/ddp_train/`` and
+``chiprun_out/ddp_nccl/``, and
 every line this script logs to ``chiprun_out/chip_smoke.log``; checkpoints,
 dumped images and the exported bundle stay in a
 temporary directory. The line before the last is a JSON record of the
@@ -50,8 +61,10 @@ import copy
 import io
 import json
 import math
+import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1061,27 +1074,27 @@ def _write_fake_cityscapes(root: str) -> None:
     sampling, the uint8 wire."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from PIL import Image
-
     jobs = [("train", "aachen", i) for i in range(TRAIN_IMAGES)] + \
         [("val", "lindau", i) for i in range(VAL_IMAGES)]
-
-    def write(job):
-        split, city, i = job
-        image, ids, _ = _fake_scene(1000 * (split == "val") + i)
-        base = f"{city}_{i:06d}_000019"
-        img_dir = Path(root, "leftImg8bit_trainvaltest/leftImg8bit", split,
-                       city)
-        msk_dir = Path(root, "gtFine_trainvaltest/gtFine", split, city)
-        img_dir.mkdir(parents=True, exist_ok=True)
-        msk_dir.mkdir(parents=True, exist_ok=True)
-        Image.fromarray(image).save(img_dir / f"{base}_leftImg8bit.png",
-                                    compress_level=1)
-        Image.fromarray(ids).save(msk_dir / f"{base}_gtFine_labelIds.png",
-                                  compress_level=1)
-
     with ThreadPoolExecutor(8) as pool:
-        list(pool.map(write, jobs))
+        list(pool.map(lambda job: _write_scene(root, *job), jobs))
+
+
+def _write_scene(root: str, split: str, city: str, i: int) -> None:
+    """Scene ``i`` of a split of the seeded Cityscapes tree (image and raw
+    label ids as PNGs)."""
+    from PIL import Image
+
+    image, ids, _ = _fake_scene(1000 * (split == "val") + i)
+    base = f"{city}_{i:06d}_000019"
+    img_dir = Path(root, "leftImg8bit_trainvaltest/leftImg8bit", split, city)
+    msk_dir = Path(root, "gtFine_trainvaltest/gtFine", split, city)
+    img_dir.mkdir(parents=True, exist_ok=True)
+    msk_dir.mkdir(parents=True, exist_ok=True)
+    Image.fromarray(image).save(img_dir / f"{base}_leftImg8bit.png",
+                                compress_level=1)
+    Image.fromarray(ids).save(msk_dir / f"{base}_gtFine_labelIds.png",
+                              compress_level=1)
 
 
 def _condition(model, seed: int = 0) -> None:
@@ -1400,17 +1413,8 @@ def phase_train(card_info: str, root: str) -> dict:
         + " ".join(f"{v:.4f}" for v in losses))
     if len(losses) != 20 or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"train losses {losses}")
-    for m in re.finditer(r"epoch (\d+): (\d+) steps on \S+, steps "
-                         r"2-\d+: ([\d.]+) s/step, ([\d.]+) img/s; host "
-                         r"data wait ([\d.]+) ms/step", text):
-        log(f"[train] epoch {m.group(1)}: steps 2-{m.group(2)} "
-            f"{m.group(3)} s/step, {m.group(4)} img/s, host data wait "
-            f"{m.group(5)} ms/step (W48 two-scale 1024x2048 bf16, bs "
-            f"1, remat 1-3, {card_info})")
-    for m in re.finditer(r"validate: (\d+) images on \S+ in ([\d.]+) "
-                         r"s, ([\d.]+) s/image", text):
-        log(f"[train] validation: {m.group(1)} images, {m.group(3)} "
-            f"s/image (3 scales, kernels on, {card_info})")
+    _log_rates("train", text, f"W48 two-scale 1024x2048 bf16, bs 1, remat "
+               f"1-3, 3 scales and kernels on in validation, {card_info}")
     log(f"[train] whole CLI run {wall:.1f} s, peak device memory "
         f"{mem:.2f} GiB, on {card_info}")
 
@@ -1858,10 +1862,11 @@ def _train_losses(logdir: str, steps: int) -> list:
 def _log_rates(tag: str, text: str, what: str) -> None:
     for m in re.finditer(r"epoch (\d+): (\d+) steps on \S+, steps "
                          r"2-\d+: ([\d.]+) s/step, ([\d.]+) img/s; host "
-                         r"data wait ([\d.]+) ms/step", text):
+                         r"data wait ([\d.]+) ms/step( \(steps 2-\d+ "
+                         r"[\d.]+ ms/step\))?", text):
         log(f"[{tag}] epoch {m.group(1)}: steps 2-{m.group(2)} "
             f"{m.group(3)} s/step, {m.group(4)} img/s, host data wait "
-            f"{m.group(5)} ms/step ({what})")
+            f"{m.group(5)} ms/step{m.group(6) or ''} ({what})")
     for m in re.finditer(r"validate: (\d+) images on \S+ in ([\d.]+) "
                          r"s, ([\d.]+) s/image", text):
         log(f"[{tag}] validation: {m.group(1)} images, {m.group(3)} "
@@ -2440,13 +2445,631 @@ def phase_mapillary_train(card_info: str, mroot: str) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_grain() -> None:
-    """Whether ``grain`` (tpuseg's process loader) is importable here."""
-    import importlib.util
+# ------------------------------------------------ data-parallel training
 
-    spec = importlib.util.find_spec("grain")
-    log(f"[grain] grain importable on this host: {spec is not None}"
-        + (f" ({spec.origin})" if spec is not None else ""))
+# [ddp-train]'s tree: 10 train scenes (5 steps an epoch a rank at batch 2)
+# and 6 val scenes (3 a rank: the val sampler does not pad)
+DDP_TRAIN_IMAGES, DDP_VAL_IMAGES = 10, 6
+# [ddp-parity]: two ranks vs one process, tiny f32 CE step on the card,
+# TF32 off; cuDNN picks other algorithms at batch 1 than at batch 2
+DDP_PARITY_TOL = {"loss_rel": 1e-5, "params_l1": 1e-5, "stats_l1": 1e-5}
+RANK_TIMEOUT = 600  # seconds a launch of ranks may take
+REFERENCE_MODULES = ("tpuseg", "jax", "jaxlib", "flax", "optax", "orbax")
+
+
+def _reference_modules() -> list:
+    """Loaded modules of tpuseg or JAX (none may be)."""
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in REFERENCE_MODULES)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _processes() -> dict:
+    """pid -> (parent pid, process group) of every process that is not a
+    zombie, from /proc."""
+    found = {}
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit():
+            continue
+        try:
+            state, ppid, pgid = (d / "stat").read_text().rsplit(
+                ")", 1)[1].split()[:3]
+        except (OSError, ValueError):  # it ended while being read
+            continue
+        if state != "Z":
+            found[int(d.name)] = (int(ppid), int(pgid))
+    return found
+
+
+def _wait_gone(alive, what: str, timeout: float = 30.0) -> None:
+    """Return once ``alive(_processes())`` is empty; raise after
+    ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while left := alive(_processes()):
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"{what} still running: {left}")
+        time.sleep(0.05)
+
+
+def _kill_group(p: subprocess.Popen) -> None:
+    """SIGKILL the process group that ``p`` leads (it was started with
+    ``start_new_session``), reap ``p`` and wait until no process of the
+    group runs."""
+    with contextlib.suppress(ProcessLookupError):
+        os.killpg(p.pid, signal.SIGKILL)
+    p.wait()
+    _wait_gone(lambda procs: [pid for pid, (_, g) in procs.items()
+                              if g == p.pid], f"process group {p.pid}")
+
+
+def _descendants() -> list:
+    """The running processes below this one."""
+    procs = _processes()
+    found, parents = [], [os.getpid()]
+    while parents:
+        kids = [pid for pid, (ppid, _) in procs.items()
+                if ppid in parents]
+        found += kids
+        parents = kids
+    return found
+
+
+def stop_processes() -> None:
+    """SIGKILL every process this run started that still runs (each phase
+    stops its own: this catches what a failed phase left), and return
+    once none does."""
+    left = _descendants()
+    for pid in left:
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGKILL)
+    for pid in left:
+        with contextlib.suppress(ChildProcessError):
+            os.waitpid(pid, 0)
+    _wait_gone(lambda procs: [pid for pid in left if pid in procs] or
+               _descendants(), "processes this run started")
+    if left:
+        log(f"[processes] stopped {len(left)} still running at the end")
+
+
+def _run_ranks(cmd: list, log_path: Path, env=None) -> str:
+    """Run ``cmd`` (a launcher of ranks, or one child) in its own process
+    group, output to ``log_path``; raises unless it exits 0 within
+    RANK_TIMEOUT. Every process it started is killed, and gone, on the way
+    out."""
+    with open(log_path, "w") as f:
+        p = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                             env=env, start_new_session=True)
+        try:
+            rc = p.wait(timeout=RANK_TIMEOUT)
+        finally:
+            _kill_group(p)
+    text = log_path.read_text()
+    if rc != 0:
+        raise AssertionError(f"{cmd[:6]} exited {rc}: {text[-3000:]}")
+    return text
+
+
+def _torchrun(nproc: int, args: list, log_path: Path, env=None) -> str:
+    """``python -m torch.distributed.run --nproc-per-node N args``."""
+    return _run_ranks([sys.executable, "-m", "torch.distributed.run",
+                       "--nproc-per-node", str(nproc), "--master-addr",
+                       "localhost", "--master-port", str(_free_port()),
+                       *args], log_path, env)
+
+
+def _batches_equal(a: list, b: list) -> bool:
+    """Two epochs of batches, key for key and byte for byte."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if x.keys() != y.keys():
+            return False
+        for k in x:
+            u, v = np.asarray(x[k]), np.asarray(y[k])
+            if (u.dtype, u.shape) != (v.dtype, v.shape) or \
+                    u.tobytes() != v.tobytes():
+                return False
+    return True
+
+
+def _child_loader(spec: dict) -> None:
+    """[loader]'s two runs, in a process of its own so that the process
+    loader's forkserver and workers end with it: one epoch of the
+    ``train_cityscapes.yaml`` train set through each loader, then the
+    DeepLabV3+ recipe through the process loader for one epoch (a
+    termination request ends the run after it). Records the batches/s,
+    whether the batches are equal and the CLI's output into
+    ``spec["out"]``."""
+    from tpuseg_torch.cli.main import load_config
+    from tpuseg_torch.data.setup import setup_data
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase_device sets
+    torch.backends.cudnn.allow_tf32 = False
+    root = spec["root"]
+    sets = [f"dataset.cityscapes_dir={root}",
+            f"dataset.centroid_root={Path(root, 'centroids')}"]
+    epochs, rates = {}, {}
+    for kind in ("threaded", "grain"):
+        cfg = load_config(TRAIN_RECIPE, sets + [f"dataset.loader={kind}"])
+        loader, _, train_set = setup_data(cfg, seed=cfg.train.seed)
+        train_set.build_epoch(0)
+        loader.set_epoch(0)
+        for rep in range(2 if kind == "grain" else 1):
+            t0 = time.perf_counter()
+            batches = list(loader)
+            rates[kind if rep == 0 else "grain, forkserver up"] = \
+                len(batches) / (time.perf_counter() - t0)
+        epochs[kind] = batches
+    res = {"rates": rates, "n": len(epochs["grain"]),
+           "equal": _batches_equal(epochs["threaded"], epochs["grain"]),
+           "batch_size": cfg.train.batch_size,
+           "workers": cfg.dataset.num_workers}
+    del epochs
+
+    stop = Path(root, "loader_stop")
+    stop.touch()
+    os.environ["TPUSEG_TERMINATE_FILE"] = str(stop)
+    res["text"], res["wall"] = _run_train_cli(
+        str(Path(root, "loader_logs")), [
+            "train.batch_size=1", "train.test_mode=true",
+            "train.log_every=1", "train.val_freq=2", "dataset.loader=grain",
+            f"dataset.cityscapes_dir={root}",
+            f"dataset.centroid_root={Path(root, 'centroids')}"])
+    res["modules"] = _reference_modules()
+    Path(spec["out"]).write_text(json.dumps(res))
+
+
+def phase_loader(card_info: str, root: str) -> None:
+    """The ``train_cityscapes.yaml`` train set (class-uniform 1024x2048
+    crops, batch 8, the uint8 wire) over the seeded tree, one epoch through
+    the threaded ``BatchLoader`` and through ``GrainLoader``'s worker
+    processes, ``dataset.num_workers`` of each, no model. Held: the
+    batches equal byte for byte. Printed: batches/s of each (the process
+    loader's first epoch includes starting its forkserver; then a second
+    pass). Then the DeepLabV3+ recipe with ``dataset.loader=grain`` through
+    the CLI's code for one epoch of 10 steps, its host data wait beside
+    the threaded loader's in [deepv3-train]. Both run in a child process
+    (:func:`_child_loader`), stopped with all it started."""
+    out = Path("chiprun_out/loader")
+    out.mkdir(parents=True, exist_ok=True)
+    spec = {"root": root, "out": str(out / "loader.json")}
+    _run_ranks([sys.executable, __file__, "--child", "loader",
+                json.dumps(spec)], out / "loader.log")
+    res = json.loads(Path(spec["out"]).read_text())
+    text = res["text"]
+    log(f"[loader] train_cityscapes.yaml train set, {res['n']} batches of "
+        f"{res['batch_size']} 1024x2048 crops, {res['workers']} "
+        f"workers: " + ", ".join(f"{k} {v:.4f} batches/s"
+                                 for k, v in res["rates"].items())
+        + f"; batches equal byte for byte: {res['equal']} (host of "
+        f"{card_info})")
+    if not res["equal"] or res["n"] == 0:
+        raise AssertionError("[loader] GrainLoader's batches differ from "
+                             "BatchLoader's")
+    _log_rates("loader", text, f"DeepV3PlusW38 800x800 bf16, bs 1, "
+               f"dataset.loader=grain, {card_info}")
+    wait = (r"epoch 0: .*host data wait ([\d.]+) ms/step( \(steps 2-\d+ "
+            r"[\d.]+ ms/step\))?")
+    threaded = Path("chiprun_out/deepv3_train/log.txt")
+    m = threaded.exists() and re.search(wait, threaded.read_text())
+    grain = re.search(wait, text)
+    log(f"[loader] DeepV3PlusW38 host data wait, epoch 0: grain "
+        + (f"{grain.group(1)} ms/step{grain.group(2) or ''}" if grain else
+           "not measured")
+        + ", threaded " + (f"{m.group(1)} ms/step{m.group(2) or ''}" if m
+                           else "not measured in this run")
+        + f" ([deepv3-train]); whole CLI run {res['wall']:.1f} s, on "
+        f"{card_info}; the loader's process loaded {res['modules'] or 'no'}"
+        f" tpuseg / JAX modules")
+    if not grain or "termination requested" not in text or res["modules"]:
+        raise AssertionError("[loader] the grain-loaded epoch did not run")
+
+
+def _parity_inputs():
+    """The tiny f32 step's config, seeded weights and a global batch of 2
+    whose images have different numbers of ignore pixels."""
+    from tpuseg_torch.config import make_config
+    from tpuseg_torch.models import get_model
+
+    sets = {"model.arch": "ocrnet.HRNet_Mscale_Tiny",
+            "model.compute_dtype": "float32", "model.n_scales": (),
+            "model.ocr.dropout": 0.0, "model.remat": False,
+            "loss.loss_type": "ce", "loss.supervised_mscale_wt": 0.05,
+            "optim.lr": 5e-4}
+    base = get_model(make_config(sets))
+    _condition(base)
+    rng = np.random.RandomState(5)
+    image = rng.randint(0, 256, (2, 64, 128, 3)).astype(np.uint8)
+    label = rng.randint(0, 19, (2, 2, 4)).astype(np.uint8).repeat(
+        32, 1).repeat(32, 2)
+    label[0, :4] = 255
+    label[1, :, :40] = 255
+    return {"sets": sets, "state": base.state_dict(), "image": image,
+            "label": label}
+
+
+def _parity_step(inp, rows: slice, ddp: bool) -> dict:
+    """One step of the tiny model on ``rows`` of the global batch on the
+    card, in DDP when ``ddp``: the loss, parameters and BN statistics."""
+    from tpuseg_torch.config import make_config
+    from tpuseg_torch.models import get_model
+
+    cfg = make_config(inp["sets"])
+    model = get_model(cfg)
+    model.load_state_dict(inp["state"])
+    model = model.to("cuda", memory_format=torch.channels_last).train()
+    net = model
+    if ddp:
+        net = torch.nn.parallel.DistributedDataParallel(
+            model, broadcast_buffers=False,
+            device_ids=[torch.cuda.current_device()])
+    step, opt = _train_step_of(cfg, model)
+    batch = {k: torch.from_numpy(inp[k][rows]).cuda()
+             for k in ("image", "label")}
+    loss = float(step(net, opt, batch, 0)["loss"])
+    params = {n: p.detach().double().cpu()
+              for n, p in model.named_parameters()}
+    return {"loss": loss, "params": params, "stats": _stats(model)}
+
+
+def phase_ddp_parity(card_info: str) -> None:
+    """The tiny f32 train step (CE, dropout 0, TF32 off) as two gloo ranks
+    on the one card at batch 1 a rank under DDP (BN statistics and the
+    loss over the global batch), against one process at batch 2 on the
+    same global batch, whose two images have different ignore counts.
+    Held: the ranks' mean loss, each rank's parameters after SGD and its
+    BN running statistics, within DDP_PARITY_TOL of the one process."""
+    out = Path("chiprun_out/ddp_parity")
+    out.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        inp = _parity_inputs()
+        torch.save(inp, Path(tmp, "inputs.pt"))
+        port = str(_free_port())
+        procs = []
+        try:
+            for rank in (0, 1):
+                env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
+                           WORLD_SIZE="2", MASTER_ADDR="localhost",
+                           MASTER_PORT=port)
+                log_f = open(out / f"rank{rank}.log", "w")
+                procs.append(subprocess.Popen(
+                    [sys.executable, __file__, "--child", "ddp-parity", tmp],
+                    stdout=log_f, stderr=subprocess.STDOUT, env=env,
+                    start_new_session=True))
+                log_f.close()
+            flags = (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+            try:
+                one = _parity_step(inp, slice(0, 2), ddp=False)
+            finally:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = flags
+            rcs = [p.wait(timeout=RANK_TIMEOUT) for p in procs]
+        finally:
+            for p in procs:
+                _kill_group(p)
+        if rcs != [0, 0]:
+            raise AssertionError(
+                f"[ddp-parity] ranks exited {rcs}: "
+                + (out / "rank0.log").read_text()[-3000:])
+        ranks = [torch.load(Path(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in (0, 1)]
+    loss = (ranks[0]["loss"] + ranks[1]["loss"]) / 2
+    gaps = {"loss_rel": abs(loss - one["loss"]) / abs(one["loss"]),
+            "params_l1": max(_tree_l1(r["params"], one["params"])
+                             for r in ranks),
+            "stats_l1": max(_tree_l1(r["stats"], one["stats"])
+                            for r in ranks)}
+    same = all(torch.equal(ranks[0]["params"][k], ranks[1]["params"][k])
+               for k in one["params"])
+    modules = sorted({m for r in ranks for m in r["modules"]})
+    log(f"[ddp-parity] tiny HRNet_Mscale f32 CE, TF32 off, 2 gloo ranks on "
+        f"one card at batch 1 vs one process at batch 2 (loss "
+        f"{one['loss']:.6f}; ignore pixels {int((inp['label'][0] == 255).sum())}"
+        f" and {int((inp['label'][1] == 255).sum())}): " + ", ".join(
+            f"{k} {v:.3e} (bound {DDP_PARITY_TOL[k]})"
+            for k, v in gaps.items())
+        + f"; ranks' parameters identical: {same}; the ranks loaded "
+        f"{modules or 'no'} tpuseg / JAX modules; on {card_info}")
+    bad = [k for k, v in gaps.items() if not v <= DDP_PARITY_TOL[k]]
+    if bad or not same or modules:
+        raise AssertionError(f"[ddp-parity] out of bounds: {bad}, ranks "
+                             f"identical {same}, modules {modules}")
+
+
+def _child_ddp_parity(tmp: str) -> None:
+    """A rank of [ddp-parity]: gloo on the card, its row of the batch."""
+    from tpuseg_torch.parallel import init_distributed, process_index
+
+    init_distributed("cuda", backend="gloo")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inp = torch.load(Path(tmp, "inputs.pt"), weights_only=False)
+    rank = process_index()
+    res = _parity_step(inp, slice(rank, rank + 1), ddp=True)
+    res["modules"] = _reference_modules()
+    torch.save(res, Path(tmp, f"rank{rank}.pt"))
+
+
+def _cfg_of(argv: list):
+    """The config a ``tpuseg_torch.cli`` command line builds."""
+    from tpuseg_torch.cli.main import load_config
+
+    sets = [argv[i + 1] for i, a in enumerate(argv) if a == "--set"]
+    return load_config(argv[argv.index("--config") + 1], sets)
+
+
+def _child_cli(spec: dict) -> None:
+    """A rank running the CLI's code (``tpuseg_torch.cli.main.main`` with
+    ``spec["argv"]``) under torchrun: joins the process group first with
+    ``spec["backend"]`` when given (the CLI's own ``--multi-host`` then
+    finds it up), on ``spec["stop_rank"]`` alone points
+    TPUSEG_TERMINATE_FILE at ``spec["stop"]``, and records the launch
+    counts, validated images, each validation's metrics, peak memory and
+    loaded modules into ``<spec["out"]>_rank<r>.json``. Rank 0 then holds
+    each kernel against its plain version at its own first val image."""
+    from tpuseg_torch.cli.main import main as cli_main
+    from tpuseg_torch.data.setup import setup_data
+    from tpuseg_torch.kernels import bottleneck_fused as bk
+    from tpuseg_torch.kernels import ocr_attention as ak
+    from tpuseg_torch.ops import device_normalize
+    from tpuseg_torch.parallel import (init_distributed, process_count,
+                                       process_index)
+    from tpuseg_torch.train import loop
+
+    if spec.get("backend"):
+        init_distributed("cuda", backend=spec["backend"])
+    rank = int(os.environ["RANK"])
+    if spec.get("stop") and rank == spec["stop_rank"]:
+        os.environ["TPUSEG_TERMINATE_FILE"] = spec["stop"]
+    recorded, validations = [], []
+    undo = _spy_validation(recorded)
+    orig = loop.Trainer.validate
+
+    def validate(self, epoch):
+        metrics = orig(self, epoch)
+        validations.append([epoch, metrics.mean_iou,
+                            int(metrics.hist.sum())])
+        return metrics
+
+    loop.Trainer.validate = validate
+    # the collectives this process issues from Python (batch norm, the
+    # losses, the metrics; DDP's gradient buckets go through C++): count
+    # and host seconds
+    reduces = {"calls": 0, "s": 0.0}
+    all_reduce = torch.distributed.all_reduce
+
+    def counted(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return all_reduce(*a, **k)
+        finally:
+            reduces["calls"] += 1
+            reduces["s"] += time.perf_counter() - t0
+
+    torch.distributed.all_reduce = counted
+    torch.cuda.reset_peak_memory_stats()
+    ak.LAUNCHES = bk.LAUNCHES = 0
+    try:
+        rc = cli_main(spec["argv"])
+    finally:
+        undo()
+        loop.Trainer.validate = orig
+        torch.distributed.all_reduce = all_reduce
+    launches = {"ocr_attention": ak.LAUNCHES,
+                "bottleneck_fused": bk.LAUNCHES}
+    res = {"rank": rank, "world": process_count(), "rc": rc,
+           "launches": launches, "images": len(recorded),
+           "validations": validations,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "all_reduce": reduces, "modules": _reference_modules()}
+    if rank == 0 and spec.get("kernel_check") and recorded:
+        cfg = _cfg_of(spec["argv"])
+        _, val_loader, _ = setup_data(cfg, eval_mode="val",
+                                      seed=cfg.train.seed,
+                                      num_shards=process_count(),
+                                      shard=process_index())
+        first = next(iter(val_loader))
+        model = recorded[-1][0].model
+        model.eval()
+        _kernels_at_trained_inputs(model, device_normalize(
+            torch.from_numpy(first["image"]).cuda()), tag="ddp-train")
+    Path(f"{spec['out']}_rank{rank}.json").write_text(json.dumps(res))
+
+
+def _cli_ranks(nproc: int, spec: dict, tag: str, env=None) -> tuple:
+    """``spec``'s CLI command as ``nproc`` ranks of this script's child
+    under torchrun: -> (the launch's output, each rank's record)."""
+    text = _torchrun(nproc, [__file__, "--child", "cli", json.dumps(spec)],
+                     Path(f"{spec['out']}.log"), env)
+    ranks = [json.loads(Path(f"{spec['out']}_rank{r}.json").read_text())
+             for r in range(nproc)]
+    for r in ranks:
+        if r["rc"] != 0 or r["modules"]:
+            raise AssertionError(f"[{tag}] rank {r['rank']}: rc {r['rc']}, "
+                                 f"modules {r['modules']}")
+    log(f"[{tag}] ranks' loaded tpuseg / JAX modules: "
+        f"{[r['modules'] for r in ranks]}")
+    return text, ranks
+
+
+def _log_ddp_rates(tag: str, text: str, what: str) -> None:
+    _log_rates(tag, text, what)
+    for pattern in (r"epoch \d+: \d+ ranks, host data wait by rank [^\n]*",
+                    r"validate: \d+ ranks, [^\n]*"):
+        for m in re.finditer(pattern, text):
+            log(f"[{tag}] {m.group(0)} ({what})")
+
+
+def phase_ddp_train(card_info: str, root: str) -> dict:
+    """``train_cityscapes.yaml`` at full width (W48 HRNet_Mscale, two-scale
+    1024x2048 fwd+bwd in bf16, RMI + aux + mscale CE, remat of stages
+    1-3, SGD + poly) through the CLI's code as two data-parallel ranks on
+    the one card: ``torch.distributed.run --nproc-per-node 2`` and
+    ``--multi-host``, gloo, batch 2 (1 a rank), ``dataset.loader=grain``,
+    ``test_mode``, over a tree of DDP_TRAIN_IMAGES train scenes (5 steps
+    an epoch) and DDP_VAL_IMAGES val scenes (3 a rank), both kernels in
+    the validations. The first launch stops after epoch 0 on a termination
+    request that only rank 1 sees; a restart resumes from its checkpoint
+    and runs epoch 1. Held: both launches end on both ranks, one
+    checkpoint a validation, the restart resumed, both ranks hold the same
+    mIoU, each summed matrix counts every labelled val pixel once, each
+    rank launches 3 attention and 9 bottleneck kernels a val image of its
+    shard, and rank 0's kernels agree with their plain versions at its own
+    inputs. Printed: global s/step and img/s, each rank's data wait, peak
+    memory and validation s/image. Returns the launches over both
+    ranks."""
+    from tpuseg_torch.cli.main import load_config
+    from tpuseg_torch.data.setup import setup_data
+
+    out = Path("chiprun_out/ddp_train")
+    out.mkdir(parents=True, exist_ok=True)
+    sub = _subset_tree(root, DDP_TRAIN_IMAGES)
+    for i in range(VAL_IMAGES, DDP_VAL_IMAGES):
+        _write_scene(sub, "val", "lindau", i)
+    logdir = str(Path(sub, "logs"))  # checkpoints stay out
+    sets = ["train.batch_size=2", "train.test_mode=true",
+            "train.log_every=1", "model.use_pallas=true",
+            "model.fused_stage1=true", "dataset.loader=grain",
+            "dataset.num_workers=4", f"dataset.cityscapes_dir={sub}",
+            f"dataset.centroid_root={Path(sub, 'centroids')}"]
+    argv = ["train", "--multi-host", "--config", TRAIN_RECIPE, "--logdir",
+            logdir]
+    for item in sets:
+        argv += ["--set", item]
+    stop = Path(sub, "stop")
+    stop.touch()
+    what = f"W48 two-scale 1024x2048 bf16, remat 1-3, 2 gloo ranks, {card_info}"
+    t0 = time.perf_counter()
+    first, first_ranks = _cli_ranks(2, {
+        "argv": argv, "backend": "gloo", "out": str(out / "first"),
+        "stop": str(stop), "stop_rank": 1}, "ddp-train")
+    ckpts = sorted(p.name for p in Path(logdir, "ckpt").glob("*.pt"))
+    t1 = time.perf_counter()
+    restart, restart_ranks = _cli_ranks(2, {
+        "argv": argv, "backend": "gloo", "out": str(out / "restart"),
+        "kernel_check": True}, "ddp-train")
+    wall = (t1 - t0, time.perf_counter() - t1)
+    ckpts_after = sorted(p.name for p in Path(logdir, "ckpt").glob("*.pt"))
+    for name in ("log.txt", "metrics.jsonl"):
+        shutil.copy(Path(logdir, name), out / name)
+    _log_ddp_rates("ddp-train", first + restart, what)
+    log(f"[ddp-train] launches {wall[0]:.1f} s (epoch 0, stopped) and "
+        f"{wall[1]:.1f} s (resumed, epoch 1); peak device memory by rank "
+        + ", ".join(f"{r['peak_gib']:.2f}"
+                    for r in first_ranks + restart_ranks) + " GiB; "
+        "all_reduce calls from Python (synced BN, losses, metrics) and "
+        "their host seconds by rank, over a launch of 5 steps and a "
+        "validation: " + ", ".join(
+            f"{r['all_reduce']['calls']} in {r['all_reduce']['s']:.2f} s"
+            for r in first_ranks + restart_ranks))
+
+    cfg = load_config(TRAIN_RECIPE, sets)
+    _, val_loader, _ = setup_data(cfg, eval_mode="val", seed=cfg.train.seed)
+    labelled = sum(int((np.asarray(b["label"]) != 255).sum())
+                   for b in val_loader)
+    want_vals = {"first": 0, "restart": 1}
+    total = {"ocr_attention": 0, "bottleneck_fused": 0}
+    bad = []
+    for name, text, ranks in (("first", first, first_ranks),
+                              ("restart", restart, restart_ranks)):
+        vals = [r["validations"] for r in ranks]
+        log(f"[ddp-train] {name}: validations (epoch, mIoU, pixels) by "
+            f"rank {vals} (want epoch {want_vals[name]}, {labelled} "
+            f"labelled pixels); images by rank "
+            f"{[r['images'] for r in ranks]}; launches by rank "
+            f"{[r['launches'] for r in ranks]}")
+        if vals[0] != vals[1] or len(vals[0]) != 1 or \
+                vals[0][0][0] != want_vals[name] or \
+                vals[0][0][2] != labelled:
+            bad.append(f"{name} validations {vals}")
+        for r in ranks:
+            want = {"ocr_attention": 3 * r["images"],
+                    "bottleneck_fused": 9 * r["images"]}
+            if r["images"] != DDP_VAL_IMAGES // 2 or r["launches"] != want:
+                bad.append(f"{name} rank {r['rank']} launches "
+                           f"{r['launches']} for {r['images']} images")
+            for k in total:
+                total[k] += r["launches"][k]
+    stopped = "termination requested" in first
+    resumed = "resumed at epoch 1" in restart
+    log(f"[ddp-train] checkpoints after the first launch {ckpts}, after "
+        f"the restart {ckpts_after}; both ranks stopped on rank 1's "
+        f"termination request: {stopped}; the restart resumed at epoch 1: "
+        f"{resumed}")
+    if ckpts != ["ckpt_5.pt"] or ckpts_after != ["ckpt_10.pt", "ckpt_5.pt"]:
+        bad.append(f"checkpoints {ckpts} {ckpts_after}")
+    if not (stopped and resumed):
+        bad.append(f"stopped {stopped}, resumed {resumed}")
+    if bad:
+        raise AssertionError(f"[ddp-train] {bad}")
+    return total
+
+
+def phase_ddp_nccl(card_info: str, root: str) -> None:
+    """One rank with the production backend: ``torch.distributed.run
+    --nproc-per-node 1`` of the CLI's code with ``--multi-host`` (NCCL on
+    the card), ``train_cityscapes.yaml`` at W48 over a 5-scene train tree:
+    5 steps, one validation of 5 images, then a termination request.
+    Held: NCCL started and DDP wrapped the model, the epoch, the
+    validation and its checkpoint. That more than one card trains
+    correctly is not shown here (one card)."""
+    out = Path("chiprun_out/ddp_nccl")
+    out.mkdir(parents=True, exist_ok=True)
+    sub = Path(root, "subset_5")
+    if not sub.exists():
+        _subset_tree(root, 5)
+    logdir = str(Path(root, "nccl_logs"))
+    stop = Path(root, "nccl_stop")
+    stop.touch()
+    argv = ["train", "--multi-host", "--config", TRAIN_RECIPE, "--logdir",
+            logdir]
+    for item in ["train.batch_size=1", "train.test_mode=true",
+                 "train.log_every=1", "model.use_pallas=true",
+                 "model.fused_stage1=true", f"dataset.cityscapes_dir={sub}",
+                 f"dataset.centroid_root={Path(root, 'nccl_centroids')}"]:
+        argv += ["--set", item]
+    t0 = time.perf_counter()
+    text, ranks = _cli_ranks(1, {"argv": argv, "out": str(out / "nccl"),
+                                 "stop": str(stop), "stop_rank": 0},
+                             "ddp-nccl")
+    wall = time.perf_counter() - t0
+    _log_rates("ddp-nccl", text, f"W48, 1 NCCL rank, {card_info}")
+    wrapped = re.search(r"DistributedDataParallel: 1 ranks, backend nccl",
+                        text)
+    ckpts = sorted(p.name for p in Path(logdir, "ckpt").glob("*.pt"))
+    r = ranks[0]
+    log(f"[ddp-nccl] DDP over NCCL: {bool(wrapped)}; validations "
+        f"{r['validations']}, launches {r['launches']} for {r['images']} "
+        f"images; checkpoints {ckpts}; whole launch {wall:.1f} s, peak "
+        f"{r['peak_gib']:.2f} GiB, on {card_info}")
+    if not wrapped or "epoch 0: 5 steps on cuda:0" not in text or \
+            len(r["validations"]) != 1 or r["images"] != VAL_IMAGES or \
+            ckpts != ["ckpt_5.pt"]:
+        raise AssertionError("[ddp-nccl] the one-rank NCCL run did not "
+                             "train, validate and checkpoint")
+
+
+def child_main(argv: list) -> int:
+    """A process this script starts: ``--child ddp-parity <dir>``,
+    ``--child loader <json spec>`` or ``--child cli <json spec>``."""
+    kind, arg = argv
+    if kind == "ddp-parity":
+        _child_ddp_parity(arg)
+    elif kind == "loader":
+        _child_loader(json.loads(arg))
+    else:
+        _child_cli(json.loads(arg))
+    return 0
 
 
 T_START = time.perf_counter()
@@ -2463,6 +3086,13 @@ def timed(fn, *args):
 def main() -> int:
     LOG_COPY.parent.mkdir(exist_ok=True)
     LOG_COPY.write_text("")
+    try:
+        return run()
+    finally:
+        stop_processes()
+
+
+def run() -> int:
     name, card_info = phase_device()
     timed(phase_build)
     records = timed(phase_kernels, card_info)
@@ -2489,6 +3119,10 @@ def main() -> int:
         timed(phase_relaxed, card_info, root)
         mscale_launches = timed(phase_mscale_eval, card_info, root)
         timed(phase_mscale_train, card_info, root)
+        timed(phase_loader, card_info, root)
+        timed(phase_ddp_parity, card_info)
+        ddp_launches = timed(phase_ddp_train, card_info, root)
+        timed(phase_ddp_nccl, card_info, root)
     with tempfile.TemporaryDirectory() as mroot:
         t0 = time.perf_counter()
         _write_fake_mapillary(mroot)
@@ -2497,7 +3131,6 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
         mapillary_launches = timed(phase_mapillary_eval, card_info, mroot)
         timed(phase_mapillary_train, card_info, mroot)
-    phase_grain()
     for r in records:
         r["launches"] = launches[r["name"]]
         r["dump_launches"] = dump_launches[r["name"]]
@@ -2506,14 +3139,12 @@ def main() -> int:
         r["aspp_ocr_launches"] = aspp_ocr_launches[r["name"]]
         r["mscale_launches"] = mscale_launches[r["name"]]
         r["mapillary_launches"] = mapillary_launches[r["name"]]
+        r["ddp_launches"] = ddp_launches[r["name"]]
     log(f"[total] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s")
-    jax_mods = sorted({m.split(".")[0] for m in sys.modules}
-                      & {"jax", "jaxlib", "flax", "optax", "orbax"})
-    ref_mods = sorted(m for m in sys.modules if m.split(".")[0] == "tpuseg")
-    log(f"[imports] JAX modules loaded: {jax_mods}; tpuseg modules loaded: "
-        f"{ref_mods}")
-    if jax_mods or ref_mods:
-        raise AssertionError(f"the port imported {jax_mods + ref_mods}")
+    ref_mods = _reference_modules()
+    log(f"[imports] tpuseg / JAX modules loaded: {ref_mods}")
+    if ref_mods:
+        raise AssertionError(f"the port imported {ref_mods}")
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -2522,4 +3153,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--child"]:  # a rank this script started
+        sys.exit(child_main(sys.argv[2:]))
     sys.exit(main())

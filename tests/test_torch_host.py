@@ -147,9 +147,6 @@ def test_label_helpers_match_tpuseg():
 
 
 def test_unported_host_options_raise(tmp_path):
-    cfg = load_config(None, ["dataset.name=synthetic", "dataset.loader=grain",
-                             "train.batch_size=2"])
-    with pytest.raises(NotImplementedError, match="grain"):
-        setup_data(cfg)
+    # dataset.loader=grain is ported (tests/test_torch_grain_loader.py)
     with pytest.raises(NotImplementedError, match="TensorBoard"):
         Logger(str(tmp_path), tensorboard=True)

@@ -371,8 +371,9 @@ def test_cli_train_checkpoint_maps_to_snapshot(monkeypatch, tmp_path):
     seen = {}
 
     class FakeTrainer:
-        def __init__(self, cfg, logdir, device):
-            seen.update(snapshot=cfg.train.snapshot, device=device)
+        def __init__(self, cfg, logdir, device, is_primary):
+            seen.update(snapshot=cfg.train.snapshot, device=device,
+                        is_primary=is_primary)
 
         def fit(self):
             seen["fit"] = True
@@ -380,4 +381,5 @@ def test_cli_train_checkpoint_maps_to_snapshot(monkeypatch, tmp_path):
     monkeypatch.setattr("tpuseg_torch.train.loop.Trainer", FakeTrainer)
     assert cli_main(["train", "--checkpoint", "w.pth", "--logdir",
                      str(tmp_path)]) == 0
-    assert seen == {"snapshot": "w.pth", "device": "cuda", "fit": True}
+    assert seen == {"snapshot": "w.pth", "device": "cuda",
+                    "is_primary": True, "fit": True}

@@ -15,8 +15,13 @@ does, and takes ``tpuseg``'s flags. Every command runs on the card unless
       --export-size 1024x2048 --export-out model.tpuseg_torch
   python -m tpuseg_torch.cli serve   --artifact model.tpuseg_torch
 
-``tpuseg``'s ``--multi-host`` (``jax.distributed``) has no flag here: its
-counterpart is DDP (ROADMAP Queue 1 item 10).
+``--multi-host`` (``tpuseg``'s flag for ``jax.distributed``) joins the
+process group of torchrun's environment first (``parallel.init_distributed``:
+NCCL on CUDA, gloo with ``--device cpu``); ``train`` and ``eval`` then run
+as data-parallel ranks, rank 0 the primary:
+
+  python -m torch.distributed.run --nproc-per-node 8 -m tpuseg_torch.cli \
+      train --multi-host --config .../train_cityscapes.yaml
 """
 from __future__ import annotations
 
@@ -90,7 +95,17 @@ def main(argv=None) -> int:
                         choices=["val", "trn", "folder"])
     parser.add_argument("--device", default="cuda",
                         help="torch device; 'cuda' raises when absent")
+    parser.add_argument("--multi-host", action="store_true",
+                        help="join torchrun's process group first (train "
+                             "and eval run as data-parallel ranks)")
     args = parser.parse_args(argv)
+
+    device, is_primary = args.device, True
+    if args.multi_host:
+        from tpuseg_torch.parallel import init_distributed, process_index
+
+        device = str(init_distributed(args.device))
+        is_primary = process_index() == 0
 
     cfg = load_config(args.config, args.sets)
     if args.command == "train":
@@ -100,7 +115,8 @@ def main(argv=None) -> int:
             # warm start (reference --snapshot, train.py:343-376)
             cfg = cfg.replace(train=dataclasses.replace(
                 cfg.train, snapshot=args.checkpoint))
-        Trainer(cfg, logdir=args.logdir, device=args.device).fit()
+        Trainer(cfg, logdir=args.logdir, device=device,
+                is_primary=is_primary).fit()
     elif args.command in ("eval", "dump"):
         from tpuseg_torch.train.loop import evaluate_only
 
@@ -108,7 +124,8 @@ def main(argv=None) -> int:
             cfg = cfg.replace(eval=dataclasses.replace(
                 cfg.eval, dump_assets=True, dump_all_images=True))
         evaluate_only(cfg, logdir=args.logdir, eval_mode=args.eval_mode,
-                      checkpoint=args.checkpoint, device=args.device)
+                      checkpoint=args.checkpoint, device=device,
+                      is_primary=is_primary)
     elif args.command == "summary":
         # params + counted FLOPs, replaces the reference's thop --summary
         # (train.py:385-392)

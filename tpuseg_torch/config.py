@@ -130,9 +130,9 @@ class ModelConfig:
     # (config.py:289-290) but eval reads args.extra_scales directly
     # (trnval_utils.py:97) — the live knob here is eval.extra_scales
     extra_scales: Sequence[float] = (0.5, 1.5)
-    # norm behavior: cross-replica (sync) batch statistics via lax.pmean over
-    # the data mesh axis — the TPU-native equivalent of apex SyncBatchNorm
-    # (reference: config.py:216-225).
+    # read by neither package (reference: config.py:216-225): batch
+    # statistics are global across data-parallel ranks whatever it says
+    # (tpuseg's mesh makes them so; here models/layers.py::BatchNorm2d)
     sync_bn: bool = True
     bn_momentum: float = 0.9          # flax convention: ema = m*ema + (1-m)*batch
     bn_eps: float = 1e-5

@@ -10,6 +10,7 @@ from typing import Optional
 from tpuseg_torch.config import Config
 from tpuseg_torch.data import joint_transforms as jt
 from tpuseg_torch.data import transforms as it
+from tpuseg_torch.data.grain_loader import GrainLoader
 from tpuseg_torch.data.loader import BatchLoader
 from tpuseg_torch.data.randaugment import RandAugment
 from tpuseg_torch.data.relaxed_labels import relaxed_onehot
@@ -122,10 +123,6 @@ def setup_data(cfg: Config, eval_mode: Optional[str] = None,
         raise ValueError(
             f"dataset.loader must be 'threaded' or 'grain', got "
             f"{d.loader!r}")
-    if eval_mode is None and d.loader == "grain":
-        # tpuseg/data/grain_loader.py waits for the training slice
-        raise NotImplementedError(
-            "dataset.loader=grain is not ported to tpuseg_torch yet")
     if eval_mode is None and cfg.train.batch_size % max(num_shards, 1):
         raise ValueError(
             f"train.batch_size={cfg.train.batch_size} must be divisible by "
@@ -187,9 +184,17 @@ def setup_data(cfg: Config, eval_mode: Optional[str] = None,
         img_transform=build_train_img_transform(cfg),
         label_transform=label_transform, seed=seed, is_primary=is_primary)
     per_shard_bs = cfg.train.batch_size // max(num_shards, 1)
-    train_sampler = ShardedEpochSampler(len(train_set), num_shards, shard,
-                                        shuffle=True, pad=True, seed=seed)
-    train_loader = BatchLoader(
-        train_set, per_shard_bs,
-        sampler=train_sampler, drop_last=True, num_workers=d.num_workers)
+    if d.loader == "grain":
+        # the train loader on worker processes (data/grain_loader.py)
+        train_loader = GrainLoader(
+            train_set, per_shard_bs, num_shards=num_shards, shard=shard,
+            shuffle=True, drop_last=True, num_workers=d.num_workers,
+            seed=seed)
+    else:
+        train_sampler = ShardedEpochSampler(len(train_set), num_shards,
+                                            shard, shuffle=True, pad=True,
+                                            seed=seed)
+        train_loader = BatchLoader(
+            train_set, per_shard_bs,
+            sampler=train_sampler, drop_last=True, num_workers=d.num_workers)
     return train_loader, val_loader, train_set

@@ -31,5 +31,9 @@ class ResultsPage:
             "<h1>{t}</h1>\n{body}\n</body></html>\n"
         ).format(t=self.experiment_name, body="\n".join(rows))
         os.makedirs(self.outdir, exist_ok=True)
-        with open(self.html_filename, "w") as f:
+        # written whole and renamed: ranks that dump their shards into one
+        # directory never leave a page that interleaves their writes
+        tmp = f"{self.html_filename}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
             f.write(html)
+        os.replace(tmp, self.html_filename)

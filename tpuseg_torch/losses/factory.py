@@ -3,8 +3,10 @@ get_loss: loss/utils.py:40-67).
 
 ``criterion(logits, labels, do_rmi=...)`` callables over NHWC logits and NHW
 labels (``relaxed``: (B, H, W, C+1) multi-hot targets); ``do_rmi`` lets
-the aux loss skip the RMI term (reference: ocrnet.py:300-308). The val
-criterion is always plain CE, as in the reference.
+the aux loss skip the RMI term (reference: ocrnet.py:300-308). The train
+criterion is the global batch's loss under data parallelism
+(``data_parallel``, ``losses/ce.py``); the val criterion is always plain CE
+on the rank's own images, as in the reference.
 """
 from __future__ import annotations
 
@@ -25,16 +27,18 @@ def get_loss(cfg):
         def criterion(logits, labels, do_rmi=True):
             return rmi_loss(logits, labels, num_classes=n,
                             ignore_label=ignore, radius=lc.rmi_radius,
-                            pool_size=lc.rmi_pool_size, do_rmi=do_rmi)
+                            pool_size=lc.rmi_pool_size, do_rmi=do_rmi,
+                            data_parallel=True)
     elif lc.loss_type == "img_wt":
         def criterion(logits, labels, do_rmi=None):
             return image_weighted_cross_entropy(
                 logits, labels, ignore_label=ignore,
                 upper_bound=lc.img_wt_bound,
-                batch_weighting=lc.batch_weighting)
+                batch_weighting=lc.batch_weighting, data_parallel=True)
     elif lc.loss_type == "ce":
         def criterion(logits, labels, do_rmi=None):
-            return cross_entropy(logits, labels, ignore_label=ignore)
+            return cross_entropy(logits, labels, ignore_label=ignore,
+                                 data_parallel=True)
     elif lc.loss_type == "relaxed":
         # over the (B, H, W, C+1) multi-hot targets of
         # dataset.jointwtborder; the train loop sets invert_border past
@@ -44,7 +48,7 @@ def get_loss(cfg):
             return relaxed_soft_nll(
                 logits, relaxed_target, upper_bound=lc.img_wt_bound,
                 batch_weighting=lc.batch_weighting,
-                invert_border=invert_border)
+                invert_border=invert_border, data_parallel=True)
     else:
         raise ValueError(f"unknown loss_type {lc.loss_type}")
 

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from tpuseg_torch.parallel import global_sum, process_count
+
 
 def _class_weights(hist_src: torch.Tensor, num_classes: int,
                    upper_bound: float, norm: bool) -> torch.Tensor:
@@ -38,13 +40,17 @@ def _class_weights(hist_src: torch.Tensor, num_classes: int,
 def relaxed_soft_nll(logits: torch.Tensor, relaxed_target: torch.Tensor,
                      upper_bound: float = 1.0, norm: bool = False,
                      batch_weighting: bool = False,
-                     invert_border: bool = False) -> torch.Tensor:
+                     invert_border: bool = False,
+                     data_parallel: bool = False) -> torch.Tensor:
     """Args:
       logits: (B, H, W, C).
       relaxed_target: (B, H, W, C+1) multi-hot float; channel C flags
         ignore.
       invert_border: after REDUCE_BORDER_EPOCH, weight borders up instead
         of down and clip multi-hot targets to 1.
+      data_parallel: this rank's share of the global batch's loss times the
+        number of ranks, the ``batch_weighting`` histogram summed across
+        ranks (``losses/ce.py``).
     Returns the per-image normalised loss summed over the batch (f32)."""
     num_classes = logits.shape[-1]
     full = relaxed_target.float()
@@ -57,9 +63,13 @@ def relaxed_soft_nll(logits: torch.Tensor, relaxed_target: torch.Tensor,
         target = target.clamp(0.0, 1.0)
         border_weights = 1.0 / border_weights
 
+    world = process_count() if data_parallel else 1
     per_image = full.sum(dim=(1, 2))                          # (B, C+1)
     if batch_weighting:
-        wts = _class_weights(per_image.sum(dim=0), num_classes, upper_bound,
+        hist = per_image.sum(dim=0)
+        if world > 1:
+            hist = global_sum(hist)
+        wts = _class_weights(hist, num_classes, upper_bound,
                              norm).expand(logits.shape[0], num_classes)
     else:
         wts = _class_weights(per_image, num_classes, upper_bound, norm)
@@ -76,4 +86,4 @@ def relaxed_soft_nll(logits: torch.Tensor, relaxed_target: torch.Tensor,
     # division by 0, reference: loss/utils.py:200-205), summed over the batch
     h, w = logits.shape[1:3]
     denom = h * w - ignore_mask.sum(dim=(1, 2)) + 1.0
-    return (loss_matrix.sum(dim=(1, 2)) / denom).sum()
+    return (loss_matrix.sum(dim=(1, 2)) / denom).sum() * world

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from tpuseg_torch.ops.resize import avg_pool2d, max_pool2d
+from tpuseg_torch.parallel import global_sum, process_count
 
 _CLIP_MIN = 1e-6      # post-sigmoid clip (reference: rmi.py:11)
 _POS_ALPHA = 5e-4     # diagonal jitter for PD-ness (reference: rmi.py:12)
@@ -72,12 +73,16 @@ def rmi_loss(logits: torch.Tensor, labels: torch.Tensor,
              num_classes: int | None = None, ignore_label: int = 255,
              radius: int = 3, pool_size: int = 4, pool_way: str = "avg",
              weight_lambda: float = 0.5, do_rmi: bool = True,
-             pos_alpha: float = _POS_ALPHA) -> torch.Tensor:
+             pos_alpha: float = _POS_ALPHA,
+             data_parallel: bool = False) -> torch.Tensor:
     """RMI loss (reference forward_sigmoid: loss/rmi.py:82-134).
 
     logits (B, H, W, C), labels (B, H, W) int; pixels outside [0, C) are
     ignored. ``do_rmi=False`` returns only the BCE part (the aux loss,
-    reference: ocrnet.py:302-308)."""
+    reference: ocrnet.py:302-308). With ``data_parallel`` the BCE divides
+    by the global batch's valid pixels + 1, times the number of ranks
+    (``losses/ce.py``); the RMI term, a mean over the batch, is averaged
+    across ranks by DDP as it is."""
     num_classes = num_classes or logits.shape[-1]
     half_d = radius * radius
     logits = logits.float()
@@ -87,7 +92,10 @@ def rmi_loss(logits: torch.Tensor, labels: torch.Tensor,
     validf = valid.float()
     onehot = F.one_hot(torch.where(valid, labels, torch.zeros_like(labels)),
                        num_classes).float() * validf[..., None]
-    bce = _bce_with_logits(logits, onehot, validf) / (validf.sum() + 1.0)
+    world = process_count() if data_parallel else 1
+    valid_pixels = validf.sum() if world == 1 else global_sum(validf.sum())
+    bce = _bce_with_logits(logits, onehot, validf) * world / (
+        valid_pixels + 1.0)
     if not do_rmi:
         return bce
 

@@ -16,14 +16,24 @@ branch at batch 1), where ``nn.BatchNorm2d`` raises and ``tpuseg`` returns
 the BN bias (variance 0) and updates the running variance with Bessel's
 factor ``n / max(n - 1, 1) = 1`` (``tpuseg/models/layers.py:78-85``).
 ``BatchNorm2d.forward`` computes that case explicitly.
+
+With more than one rank (``tpuseg_torch.parallel``), a training
+``BatchNorm2d`` takes its statistics over the global batch, as ``tpuseg``'s
+batch norm does under the mesh (``tpuseg/models/layers.py:8-13``):
+``_GlobalBatchNorm`` all-reduces the per-channel sums in the forward and
+the gradient sums in the backward. ``nn.SyncBatchNorm`` raises on CPU
+tensors, and ``convert_sync_batchnorm`` would replace this class.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+
+from tpuseg_torch.parallel import process_count
 
 
 class Conv2d(nn.Conv2d):
@@ -52,13 +62,85 @@ def conv(cin: int, cout: int, kernel: int, stride: int = 1,
                   dilation=dilation, bias=bias)
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Training batch norm over every rank's batch, in f32, in two passes:
+    the global sum and count give the mean, then the global sum of squared
+    deviations the (biased) variance. The backward all-reduces the
+    per-channel sums of ``dy`` and ``dy * xhat``, so each rank's input
+    gradient is that of every rank's loss (nn.SyncBatchNorm's scheme);
+    the weight and bias gradients stay local for DDP to average. Saves the
+    input in its own dtype. Returns (y, mean, var, count)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        c = x.shape[1]
+        view = (1, c, 1, 1)
+        xf = x.float()
+        stats = torch.cat([xf.sum(dim=(0, 2, 3)),
+                           xf.new_full((1,), x.numel() // c)])
+        dist.all_reduce(stats)
+        n = stats[c]
+        mean = stats[:c] / n
+        xc = xf - mean.view(view)
+        sq = (xc * xc).sum(dim=(0, 2, 3))
+        dist.all_reduce(sq)
+        var = sq / n
+        invstd = torch.rsqrt(var + eps)
+        y = xc * invstd.view(view)
+        if weight is not None:
+            y = y * weight.view(view) + bias.view(view)
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        ctx.mark_non_differentiable(mean, var, n)
+        return y.to(x.dtype), mean, var, n
+
+    @staticmethod
+    def backward(ctx, dy, *_):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        c = x.shape[1]
+        view = (1, c, 1, 1)
+        dyf = dy.float()
+        xhat = (x.float() - mean.view(view)) * invstd.view(view)
+        local = torch.cat([dyf.sum(dim=(0, 2, 3)),
+                           (dyf * xhat).sum(dim=(0, 2, 3))])
+        total = local.clone()
+        dist.all_reduce(total)
+        scale = invstd if weight is None else invstd * weight
+        dx = (dyf - (total[:c] / n).view(view)
+              - xhat * (total[c:] / n).view(view)) * scale.view(view)
+        if weight is None:
+            return dx.to(x.dtype), None, None, None
+        return dx.to(x.dtype), local[c:], local[:c], None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` that also trains on one value per channel."""
+    """``nn.BatchNorm2d`` that also trains on one value per channel, and
+    over the global batch when more than one rank trains."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and process_count() > 1:
+            return self._global_batch(x)
         if self.training and x.numel() == x.shape[1]:
             return self._single_value(x)
         return super().forward(x)
+
+    def _global_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """Statistics over every rank's batch. One value per channel keys on
+        the global count: ASPP's pooled BN at batch 1 a rank normalises
+        ``world_size`` values, and one value over all ranks gives
+        ``_single_value``'s result (mean = x, variance 0). The running
+        variance takes Bessel's factor ``n / max(n - 1, 1)`` of the global
+        count ``n``."""
+        y, mean, var, n = _GlobalBatchNorm.apply(x, self.weight, self.bias,
+                                                 self.eps)
+        if self.track_running_stats:
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+                m = (1.0 / float(self.num_batches_tracked)
+                     if self.momentum is None else self.momentum)
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(
+                    m * var * n / (n - 1).clamp_min(1))
+        return y
 
     def _single_value(self, x: torch.Tensor) -> torch.Tensor:
         """``tpuseg``'s batch norm over n = 1 value per channel: mean = x,

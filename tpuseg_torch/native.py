@@ -3,8 +3,8 @@
 The port's copy of the numpy/scipy paths of ``tpuseg/native/__init__.py``
 (``remap``, ``tile_class_centroids``). ``tpuseg``'s C++ accumulator
 (``fasthist.cpp``) is not carried over: the eval path takes its confusion
-matrix on the device, and the class-uniform sampler that would use the C++
-centroid pass waits for the training slice.
+matrix on the device, and the class-uniform sampler takes its centroids
+from the numpy pass here (``data/uniform.py``).
 """
 from __future__ import annotations
 

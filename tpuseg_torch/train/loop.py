@@ -1,5 +1,5 @@
-"""Training and eval orchestration (port of ``tpuseg/train/loop.py:56-519``;
-reference: train.py:324-597), on one device.
+"""Training and eval orchestration (port of ``tpuseg/train/loop.py:56-532``;
+reference: train.py:324-597), on one device or as data-parallel ranks.
 
 ``tpuseg``'s ``TrainState`` pytree (step, params, batch_stats, opt_state)
 becomes the ``Trainer``'s ``model`` (weights and BN statistics),
@@ -12,16 +12,26 @@ Validation and ``evaluate_only`` dump images as ``tpuseg``'s do
 (``evaluation/dumper.py``: ``<logdir>/best_images`` and
 ``<logdir>/eval_images`` or ``eval.result_dir``), with the full-resolution
 device reads only for the batches the dumper writes; ``eval.dump_topn``
-runs the two-pass failure gallery (``evaluation/topn.py``). The multi-host
-reductions of ``tpuseg`` wait with DDP (ROADMAP Queue 1 item 10).
+runs the two-pass failure gallery (``evaluation/topn.py``).
+
+With more than one rank (``tpuseg_torch.parallel``, the CLI's
+``--multi-host``), each rank trains on its shard of the global batch
+(``train.batch_size`` is global, as in ``tpuseg``) through
+``DistributedDataParallel``; batch norm and the losses reduce over the
+global batch (``models/layers.py``, ``losses/``). Each rank validates its
+shard of the val split, and the confusion matrices are summed across ranks
+in the runner's static scale order (``_reduce_scale_hists``), so every rank
+holds the same metrics. Rank 0 writes the checkpoints and the primary
+logs; a termination request on any rank stops every rank. Dumps and
+``eval.dump_topn`` run on each rank's shard, as in ``tpuseg``.
 
 Label relaxation (``loss.loss_type=relaxed`` with
 ``dataset.jointwtborder``) keeps ``tpuseg``'s border schedule: past
 ``loss.reduce_border_epoch`` the criterion runs with ``invert_border`` and
 the train set's label transform becomes the ``reduce_border`` one.
 
-Not ported yet, and raising instead of being skipped: more than one device
-(item 10).
+Not ported, and raising: ``mesh.model_parallelism > 1`` (dp x sp spatial
+sharding, ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -45,6 +55,14 @@ from tpuseg_torch.evaluation.metrics import (
 )
 from tpuseg_torch.losses import get_loss, get_val_loss
 from tpuseg_torch.models import get_model
+from tpuseg_torch.parallel import (
+    any_rank,
+    multihost_sum,
+    per_rank,
+    process_count,
+    process_index,
+    sync_hosts,
+)
 from tpuseg_torch.train.checkpoint import (
     AutoResume,
     CheckpointManager,
@@ -53,6 +71,7 @@ from tpuseg_torch.train.checkpoint import (
 from tpuseg_torch.train.optim import make_optimizer
 from tpuseg_torch.train.step import make_train_step
 from tpuseg_torch.utils.logging import Logger
+
 
 def resolve_device(device: str) -> torch.device:
     """The run's device; asking for CUDA without a CUDA device raises."""
@@ -64,22 +83,36 @@ def resolve_device(device: str) -> torch.device:
     return dev
 
 
+def _reduce_scale_hists(scale_hists: dict, runner: EvalRunner,
+                        num_classes: int) -> dict:
+    """The per-scale confusion matrices summed across ranks over the
+    runner's STATIC scale set, in sorted order (tpuseg loop.py:41-53): a
+    rank whose val shard is empty issues the same collectives as its
+    peers, so none waits for another."""
+    zeros = np.zeros((num_classes, num_classes), np.float64)
+    return {s: multihost_sum(np.asarray(scale_hists.get(s, zeros),
+                                        np.float64))
+            for s in sorted(runner.scale_hist_scales)}
+
+
 class Trainer:
-    """Training on one device (tpuseg ``Trainer``; reference train.py:
-    324-597): ``fit`` runs ``train_epoch`` and ``validate`` per epoch,
-    checkpointing after each validation and resuming from the latest
-    checkpoint of ``logdir`` on a restart."""
+    """Training (tpuseg ``Trainer``; reference train.py:324-597) on one
+    device, or as one rank of a process group: ``fit`` runs
+    ``train_epoch`` and ``validate`` per epoch, checkpointing after each
+    validation and resuming from the latest checkpoint of ``logdir`` on a
+    restart."""
 
     def __init__(self, cfg: Config, logdir: str = "logs",
-                 device: str = "cuda"):
+                 device: str = "cuda", is_primary: bool = True):
         if cfg.mesh.model_parallelism > 1:
             raise NotImplementedError(
                 "mesh.model_parallelism > 1 (spatial sharding) is not "
-                "ported to tpuseg_torch (ROADMAP.md Queue 1 item 10)")
+                "ported to tpuseg_torch (ROADMAP.md Queue 1 item 5)")
         self.cfg = cfg
         self.logdir = logdir
         self.device = resolve_device(device)
-        self.logger = Logger(logdir)
+        self.is_primary = is_primary
+        self.logger = Logger(logdir, is_primary)
         self.criterion, self.val_criterion = get_loss(cfg)
 
         # the eval config's model: n-scale fusion over the eval scales in
@@ -90,16 +123,21 @@ class Trainer:
         n_params = sum(p.numel() for p in model.parameters())
         self.logger.msg(f"params: {n_params / 1e6:.2f}M on {self.device}")
 
+        # this rank's shard of the global batch (reference
+        # DistributedSampler semantics: datasets/sampler.py:43-110)
         self.train_loader, self.val_loader, self.train_set = setup_data(
-            cfg, eval_mode=None, seed=cfg.train.seed)
+            cfg, eval_mode=None, seed=cfg.train.seed,
+            num_shards=process_count(), shard=process_index(),
+            is_primary=is_primary)
         self.steps_per_epoch = max(1, len(self.train_loader))
         if cfg.train.test_mode:
             self.steps_per_epoch = min(self.steps_per_epoch, 10)
         self.optimizer, self.schedule = make_optimizer(
             cfg, self.model.parameters(), self.steps_per_epoch)
         self.step = 0
-        # dropout masks come from the device's default generator
-        torch.manual_seed(cfg.train.seed + 1)
+        # dropout masks come from the device's default generator, seeded
+        # per rank (tpuseg draws them from one key over the global batch)
+        torch.manual_seed(cfg.train.seed + 1 + process_index())
 
         self.ckpt = CheckpointManager(
             os.path.join(logdir, cfg.train.checkpoint_dir),
@@ -108,6 +146,19 @@ class Trainer:
         self.start_epoch = 0
         self.best_miou = 0.0
         self._restore()
+        # what the train step runs: the module itself, or DDP around it
+        # in a process group (gradients averaged across ranks; BN
+        # statistics are already global, so its buffers are not broadcast)
+        self.net = self.model
+        if torch.distributed.is_initialized():
+            self.net = torch.nn.parallel.DistributedDataParallel(
+                self.model, broadcast_buffers=False,
+                device_ids=([self.device.index]
+                            if self.device.type == "cuda" else None))
+            self.logger.msg(
+                f"DistributedDataParallel: {process_count()} ranks, backend "
+                f"{torch.distributed.get_backend()}, rank "
+                f"{process_index()} on {self.device}")
 
         self.train_step = self._make_train_step(invert_border=False)
         self.eval_runner = EvalRunner(
@@ -202,21 +253,24 @@ class Trainer:
             ts.build_epoch(epoch)
         self.train_loader.set_epoch(epoch)
 
-        profile_on = cfg.train.profile_steps > 0 and epoch == self.start_epoch
+        profile_on = (cfg.train.profile_steps > 0 and self.is_primary
+                      and epoch == self.start_epoch)
         trace_dir = os.path.join(self.logdir, "trace")
         prof = None
         loss_sum = None
         n_done = 0
-        data_s = 0.0
+        data_s = first_wait = 0.0
         t_start = t_wait = time.perf_counter()
         t_first = None
         for i, batch in enumerate(self.train_loader):
             if cfg.train.test_mode and i >= 10:
                 break
             data_s += time.perf_counter() - t_wait
+            if i == 0:  # the loader's start
+                first_wait = data_s
             device_batch = {"image": self._upload(batch["image"]),
                             "label": self._upload(batch["label"])}
-            metrics = train_step(self.model, self.optimizer, device_batch,
+            metrics = train_step(self.net, self.optimizer, device_batch,
                                  self.step)
             self.step += 1
             loss_sum = metrics["loss"] if loss_sum is None \
@@ -230,10 +284,12 @@ class Trainer:
                 self._stop_profile(prof, trace_dir)
                 prof = None
             if (i + 1) % cfg.train.log_every == 0 or i == 0:
-                loss = float(metrics["loss"])  # the device sync point
-                avg = float(loss_sum) / n_done
+                # the device sync point; the global batch's loss
+                loss = _rank_mean(float(metrics["loss"]))
+                avg = _rank_mean(float(loss_sum)) / n_done
                 lr = float(self.schedule(self.step))
-                imgs_s = (n_done * batch["image"].shape[0]
+                # batch rows are this rank's shard: the global rate
+                imgs_s = (n_done * batch["image"].shape[0] * process_count()
                           / max(time.perf_counter() - t_start, 1e-6))
                 self.logger.msg(
                     f"epoch {epoch} it {i + 1}/{self.steps_per_epoch} "
@@ -247,25 +303,38 @@ class Trainer:
             t_wait = time.perf_counter()
         if prof is not None:  # the epoch was shorter than profile_steps
             self._stop_profile(prof, trace_dir)
-        mean_loss = float(loss_sum) / n_done if n_done else 0.0  # syncs
-        self._log_epoch(epoch, n_done, data_s, t_first,
+        # syncs; the global batch's loss
+        mean_loss = (_rank_mean(float(loss_sum)) / n_done if n_done
+                     else 0.0)
+        self._log_epoch(epoch, n_done, data_s, first_wait, t_first,
                         batch["image"].shape[0] if n_done else 0, mean_loss)
         return mean_loss
 
-    def _log_epoch(self, epoch, n_done, data_s, t_first, batch_size,
-                   mean_loss) -> None:
-        """The epoch's rate over steps 2..N (the first pays cuDNN's
+    def _log_epoch(self, epoch, n_done, data_s, first_wait, t_first,
+                   batch_size, mean_loss) -> None:
+        """The epoch's global rate over steps 2..N (the first pays cuDNN's
         algorithm choice and the loader's start) and the host time spent
-        waiting for batches."""
-        rate = ""
+        waiting for batches, over all steps and over steps 2..N, on each
+        rank."""
+        rate = steady = ""
         if n_done > 1 and t_first is not None:
             dt = time.perf_counter() - t_first
             rate = (f"steps 2-{n_done}: {dt / (n_done - 1):.4f} s/step, "
-                    f"{(n_done - 1) * batch_size / dt:.4f} img/s; ")
+                    f"{(n_done - 1) * batch_size * process_count() / dt:.4f}"
+                    f" img/s; ")
+        later = (data_s - first_wait) / max(n_done - 1, 1) * 1e3
+        if n_done > 1:
+            steady = f" (steps 2-{n_done} {later:.1f} ms/step)"
+        wait = data_s / max(n_done, 1) * 1e3
         self.logger.msg(f"epoch {epoch}: {n_done} steps on {self.device}, "
-                        f"{rate}host data wait "
-                        f"{data_s / max(n_done, 1) * 1e3:.1f} ms/step, mean "
-                        f"loss {mean_loss:.4f}")
+                        f"{rate}host data wait {wait:.1f} ms/step{steady}, "
+                        f"mean loss {mean_loss:.4f}")
+        if process_count() > 1:
+            waits = " ".join(f"{w:.1f}" for w in per_rank(wait))
+            laters = " ".join(f"{w:.1f}" for w in per_rank(later))
+            self.logger.msg(f"epoch {epoch}: {process_count()} ranks, host "
+                            f"data wait by rank {waits} ms/step (steps 2-N "
+                            f"{laters})")
 
     def _start_profile(self):
         """torch.profiler over ``train.profile_steps`` steady-state steps
@@ -291,9 +360,9 @@ class Trainer:
 
     def validate(self, epoch: int):
         """Score the val split with the model in eval mode (reference
-        validate(): train.py:536-597), dump the images the dumper picks
-        into ``<logdir>/best_images``, then checkpoint. Returns the IoU
-        metrics."""
+        validate(): train.py:536-597), each rank its shard, dump the
+        images the dumper picks into ``<logdir>/best_images``, then
+        checkpoint. Returns the IoU metrics of the whole split."""
         cfg = self.cfg
         runner = self.eval_runner
         n = cfg.dataset.num_classes
@@ -338,6 +407,8 @@ class Trainer:
         self.logger.msg(f"validate: {images} images on {self.device} in "
                         f"{dt:.3f} s, {dt / max(images, 1):.4f} s/image")
 
+        total_hist = multihost_sum(total_hist)
+        scale_hists = _reduce_scale_hists(scale_hists, runner, n)
         metrics = eval_metrics_from_hist(total_hist)
         class_names = list(getattr(self.val_loader.dataset,
                                    "trainid_to_name", {}).values()) or None
@@ -350,12 +421,27 @@ class Trainer:
         self.logger.metric("val", val_scalars, self.step)
         dumper.write_summaries(self.logger, self.step)
         dumper.write_webpage()
+        if process_count() > 1:
+            self.logger.msg(
+                f"validate: {process_count()} ranks, images by rank "
+                f"{[int(v) for v in per_rank(images)]}, s/image by rank "
+                + " ".join(f"{v:.4f}" for v in per_rank(dt / max(images, 1)))
+                + ", mIoU by rank "
+                + " ".join(f"{v:.6f}" for v in per_rank(metrics.mean_iou)))
+        # every rank: the metrics are the summed matrices', the same on all
         if metrics.mean_iou >= self.best_miou:
             self.best_miou = metrics.mean_iou
-        path = self.ckpt.save(self.step, self.model, self.optimizer, epoch,
-                              metrics.mean_iou)
-        self.logger.msg(f"checkpoint -> {path}")
+        self._save(epoch, metrics.mean_iou)
         return metrics
+
+    def _save(self, epoch: int, mean_iu: float) -> None:
+        """Rank 0 writes the checkpoint (the module's own state dict, in the
+        reference's names); the other ranks wait for it."""
+        if process_index() == 0:
+            path = self.ckpt.save(self.step, self.model, self.optimizer,
+                                  epoch, mean_iu)
+            self.logger.msg(f"checkpoint -> {path}")
+        sync_hosts()
 
     def fit(self) -> None:
         """The epoch loop (reference main(): train.py:431-462); two epochs
@@ -367,12 +453,20 @@ class Trainer:
             if (epoch + 1) % cfg.train.val_freq == 0 or \
                     epoch == max_epoch - 1:
                 self.validate(epoch)
-            if self.auto_resume.termination_requested():
+            # one decision for all ranks: a rank leaving alone would leave
+            # the others waiting in their next collective
+            if any_rank(self.auto_resume.termination_requested()):
                 self.logger.msg("termination requested: checkpoint + exit")
-                self.ckpt.save(self.step, self.model, self.optimizer, epoch,
-                               self.best_miou)
+                self._save(epoch, self.best_miou)
                 return
         self.logger.msg(f"done; best mIoU {self.best_miou:.4f}")
+
+
+def _rank_mean(value: float) -> float:
+    """The mean of ``value`` over the ranks: each rank's train loss is its
+    share of the global batch's loss times the number of ranks
+    (``losses/ce.py``), so this is the global loss."""
+    return float(multihost_sum(np.asarray([value]))[0]) / process_count()
 
 
 def _make_dumper(cfg: Config, val_loader, dump_dir: str,
@@ -399,15 +493,16 @@ def _dump(dumper: ImageDumper, batch, assets, val_idx: int) -> None:
 
 def evaluate_only(cfg: Config, logdir: str = "logs",
                   eval_mode: str = "val", checkpoint: Optional[str] = None,
-                  device: str = "cuda"):
+                  device: str = "cuda", is_primary: bool = True):
     """Score ``cfg``'s model on the val (or train) split, or run it over a
     folder of images (``eval_mode="folder"``, no labels), dumping what
     ``cfg.eval`` asks for (tpuseg loop.py:414-532). ``checkpoint`` is a
     reference-format torch state dict; without it the weights are a
-    seeded fresh init (``train.seed``). Returns the IoU metrics, or None
-    when nothing is scored."""
+    seeded fresh init (``train.seed``). With more than one rank each
+    scores its shard and the matrices are summed across ranks. Returns
+    the IoU metrics, or None when nothing is scored."""
     dev = resolve_device(device)
-    logger = Logger(logdir)
+    logger = Logger(logdir, is_primary)
 
     model = get_model(eval_model_config(cfg), seed=cfg.train.seed)
     if checkpoint:
@@ -416,7 +511,10 @@ def evaluate_only(cfg: Config, logdir: str = "logs",
     model = model.to(device=dev, memory_format=torch.channels_last).eval()
 
     _, val_loader, _ = setup_data(cfg, eval_mode=eval_mode,
-                                  seed=cfg.train.seed)
+                                  seed=cfg.train.seed,
+                                  num_shards=process_count(),
+                                  shard=process_index(),
+                                  is_primary=is_primary)
     runner = EvalRunner(
         model, cfg.dataset.num_classes,
         scales=(cfg.eval.default_scale, *(cfg.eval.extra_scales or ())),
@@ -504,6 +602,8 @@ def evaluate_only(cfg: Config, logdir: str = "logs",
     dumper.write_webpage()
     if not calc_metrics:
         return None
+    total_hist = multihost_sum(total_hist)
+    scale_hists = _reduce_scale_hists(scale_hists, runner, n)
     metrics = eval_metrics_from_hist(total_hist)
     class_names = list(getattr(val_loader.dataset, "trainid_to_name",
                                {}).values()) or None
