@@ -32,7 +32,12 @@ data wait through it ([loader]); a tiny f32 step as two gloo ranks on the
 card vs one process ([ddp-parity]); ``train_cityscapes.yaml`` at W48 as two
 ranks on the card under ``torch.distributed.run`` with the CLI's
 ``--multi-host``, stopped, resumed, both kernels in each rank's
-validations ([ddp-train]); and one NCCL rank ([ddp-nccl]).
+validations ([ddp-train]); and one NCCL rank ([ddp-nccl]). Then dp x sp
+spatial sharding (``mesh.model_parallelism: 2``): a W48 f32 step as two
+gloo ranks of one sp group, each on its band of the image's rows, vs one
+process ([sp-parity]); and ``train_cityscapes.yaml`` at W48 1024x2048 as
+two spatial ranks through ``torch.distributed.run`` and ``--multi-host``,
+both kernels in each rank's whole-image validation ([sp-train]).
 
     python3 chip_smoke.py
 
@@ -47,8 +52,9 @@ the eval and train runs' logs to ``chiprun_out/logs/``,
 ``chiprun_out/train/``, ``chiprun_out/deepv3_train/``,
 ``chiprun_out/mscale_train/``, ``chiprun_out/mapillary_train/``, the
 child processes' logs to ``chiprun_out/loader/``,
-``chiprun_out/ddp_parity/``, ``chiprun_out/ddp_train/`` and
-``chiprun_out/ddp_nccl/``, and
+``chiprun_out/ddp_parity/``, ``chiprun_out/ddp_train/``,
+``chiprun_out/ddp_nccl/``, ``chiprun_out/sp_parity/`` and
+``chiprun_out/sp_train/``, and
 every line this script logs to ``chiprun_out/chip_smoke.log``; checkpoints,
 dumped images and the exported bundle stay in a
 temporary directory. The line before the last is a JSON record of the
@@ -1954,22 +1960,21 @@ def phase_deepv3_train(card_info: str, root: str) -> None:
     torch.cuda.empty_cache()
 
 
-def _subset_tree(root: str, n_train: int) -> str:
+def _subset_tree(root: str, n_train: int, n_val: int = VAL_IMAGES) -> str:
     """A Cityscapes tree beside ``root`` with its first ``n_train`` train
-    scenes and all its val scenes (symlinks)."""
-    sub = Path(root, f"subset_{n_train}")
+    scenes and first ``n_val`` val scenes (symlinks)."""
+    sub = Path(root, f"subset_{n_train}" + (
+        f"_{n_val}" if n_val != VAL_IMAGES else ""))
     for part in ("leftImg8bit_trainvaltest/leftImg8bit",
                  "gtFine_trainvaltest/gtFine"):
-        for split, city in (("train", "aachen"), ("val", "lindau")):
+        for split, city, n in (("train", "aachen", n_train),
+                               ("val", "lindau", n_val)):
             src = Path(root, part, split, city)
             dst = sub / part / split / city
             dst.mkdir(parents=True)
-            names = sorted(src.iterdir())
-            if split == "train":
-                names = [f for f in names
-                         if int(f.name.split("_")[1]) < n_train]
-            for f in names:
-                (dst / f.name).symlink_to(f)
+            for f in sorted(src.iterdir()):
+                if int(f.name.split("_")[1]) < n:
+                    (dst / f.name).symlink_to(f)
     return str(sub)
 
 
@@ -2395,8 +2400,9 @@ def phase_mapillary_train(card_info: str, mroot: str) -> None:
     crops after pre_size 2177, gblur, class-uniform sampling at 0.5, RMI at
     65 classes, SGD + poly, the uint8 wire) through the CLI's code, bs 1,
     ``train.test_mode``, two epochs of 5 steps over the seeded Mapillary
-    tree. Held: finite losses, each validation's matrix counting every
-    labelled pixel. Printed: s/step, host data wait, peak memory."""
+    tree and one validation, after the second (``train.val_freq=2``).
+    Held: finite losses, the validation's matrix counting every labelled
+    pixel. Printed: s/step, host data wait, peak memory."""
     from tpuseg_torch.cli.main import load_config, main as cli_main
     from tpuseg_torch.data.setup import setup_data
 
@@ -2405,6 +2411,7 @@ def phase_mapillary_train(card_info: str, mroot: str) -> None:
     logdir = str(Path(mroot, "train_logs"))
     sets = [f"dataset.mapillary_dir={mroot}", "train.batch_size=1",
             "train.test_mode=true", "train.log_every=1",
+            "train.val_freq=2",
             f"dataset.centroid_root={Path(mroot, 'centroids')}"]
     argv = ["train", "--config", MAPILLARY_TRAIN_RECIPE, "--logdir", logdir]
     for item in sets:
@@ -2437,19 +2444,19 @@ def phase_mapillary_train(card_info: str, mroot: str) -> None:
     _, val_loader, _ = setup_data(cfg, eval_mode="val", seed=cfg.train.seed)
     labelled = sum(int((np.asarray(b["label"]) != 65).sum())
                    for b in val_loader)
-    log(f"[mapillary-train] validation confusion matrices count {sums} "
-        f"pixels (want {labelled} each); whole CLI run {wall:.1f} s, peak "
-        f"device memory {mem:.2f} GiB, on {card_info}")
-    if sums != [labelled, labelled]:
+    log(f"[mapillary-train] validation confusion matrix counts {sums} "
+        f"pixels (want {labelled}, one validation); whole CLI run "
+        f"{wall:.1f} s, peak device memory {mem:.2f} GiB, on {card_info}")
+    if sums != [labelled]:
         raise AssertionError(f"confusion matrices count {sums}")
     torch.cuda.empty_cache()
 
 
 # ------------------------------------------------ data-parallel training
 
-# [ddp-train]'s tree: 10 train scenes (5 steps an epoch a rank at batch 2)
-# and 6 val scenes (3 a rank: the val sampler does not pad)
-DDP_TRAIN_IMAGES, DDP_VAL_IMAGES = 10, 6
+# [ddp-train]'s tree: 4 train scenes (2 steps an epoch a rank at batch 2)
+# and 4 val scenes (2 a rank: the val sampler does not pad)
+DDP_TRAIN_IMAGES, DDP_VAL_IMAGES = 4, 4
 # [ddp-parity]: two ranks vs one process, tiny f32 CE step on the card,
 # TF32 off; cuDNN picks other algorithms at batch 1 than at batch 2
 DDP_PARITY_TOL = {"loss_rel": 1e-5, "params_l1": 1e-5, "stats_l1": 1e-5}
@@ -2882,7 +2889,8 @@ def _child_cli(spec: dict) -> None:
         model = recorded[-1][0].model
         model.eval()
         _kernels_at_trained_inputs(model, device_normalize(
-            torch.from_numpy(first["image"]).cuda()), tag="ddp-train")
+            torch.from_numpy(first["image"]).cuda()),
+            tag=spec.get("tag", "ddp-train"))
     Path(f"{spec['out']}_rank{rank}.json").write_text(json.dumps(res))
 
 
@@ -2916,8 +2924,8 @@ def phase_ddp_train(card_info: str, root: str) -> dict:
     1-3, SGD + poly) through the CLI's code as two data-parallel ranks on
     the one card: ``torch.distributed.run --nproc-per-node 2`` and
     ``--multi-host``, gloo, batch 2 (1 a rank), ``dataset.loader=grain``,
-    ``test_mode``, over a tree of DDP_TRAIN_IMAGES train scenes (5 steps
-    an epoch) and DDP_VAL_IMAGES val scenes (3 a rank), both kernels in
+    ``test_mode``, over a tree of DDP_TRAIN_IMAGES train scenes (2 steps
+    an epoch) and DDP_VAL_IMAGES val scenes (2 a rank), both kernels in
     the validations. The first launch stops after epoch 0 on a termination
     request that only rank 1 sees; a restart resumes from its checkpoint
     and runs epoch 1. Held: both launches end on both ranks, one
@@ -2933,9 +2941,7 @@ def phase_ddp_train(card_info: str, root: str) -> dict:
 
     out = Path("chiprun_out/ddp_train")
     out.mkdir(parents=True, exist_ok=True)
-    sub = _subset_tree(root, DDP_TRAIN_IMAGES)
-    for i in range(VAL_IMAGES, DDP_VAL_IMAGES):
-        _write_scene(sub, "val", "lindau", i)
+    sub = _subset_tree(root, DDP_TRAIN_IMAGES, DDP_VAL_IMAGES)
     logdir = str(Path(sub, "logs"))  # checkpoints stay out
     sets = ["train.batch_size=2", "train.test_mode=true",
             "train.log_every=1", "model.use_pallas=true",
@@ -2968,8 +2974,8 @@ def phase_ddp_train(card_info: str, root: str) -> dict:
         + ", ".join(f"{r['peak_gib']:.2f}"
                     for r in first_ranks + restart_ranks) + " GiB; "
         "all_reduce calls from Python (synced BN, losses, metrics) and "
-        "their host seconds by rank, over a launch of 5 steps and a "
-        "validation: " + ", ".join(
+        f"their host seconds by rank, over a launch of "
+        f"{DDP_TRAIN_IMAGES // 2} steps and a validation: " + ", ".join(
             f"{r['all_reduce']['calls']} in {r['all_reduce']['s']:.2f} s"
             for r in first_ranks + restart_ranks))
 
@@ -3006,7 +3012,9 @@ def phase_ddp_train(card_info: str, root: str) -> dict:
         f"the restart {ckpts_after}; both ranks stopped on rank 1's "
         f"termination request: {stopped}; the restart resumed at epoch 1: "
         f"{resumed}")
-    if ckpts != ["ckpt_5.pt"] or ckpts_after != ["ckpt_10.pt", "ckpt_5.pt"]:
+    steps = DDP_TRAIN_IMAGES // 2
+    if ckpts != [f"ckpt_{steps}.pt"] or \
+            ckpts_after != sorted([f"ckpt_{steps}.pt", f"ckpt_{2 * steps}.pt"]):
         bad.append(f"checkpoints {ckpts} {ckpts_after}")
     if not (stopped and resumed):
         bad.append(f"stopped {stopped}, resumed {resumed}")
@@ -3059,12 +3067,314 @@ def phase_ddp_nccl(card_info: str, root: str) -> None:
                              "train, validate and checkpoint")
 
 
+# ------------------------------------------------ dp x sp spatial sharding
+
+# [sp-parity]: W48 at full width in f32, one image at SP_PARITY_HW (a
+# quarter of the recipe's crop keeps the phase in its budget), two gloo
+# ranks of one sp group on the card vs one process; TF32 off and cuDNN
+# deterministic on both sides. The random W48 net amplifies f32 rounding
+# in its gradients: the one process on a batch of the image twice (the
+# same loss and gradient, other kernels and sums) sets the floor, and the
+# CE gradient is held within SP_GRAD_FLOORS of it, or 1e-4
+SP_PARITY_HW = (512, 1024)
+SP_PARITY_TOL = {"loss_rel": 1e-5, "params_l1": 1e-5, "stats_l1": 1e-5,
+                 "grad_l1": 1e-4}
+SP_GRAD_FLOORS = 2.0
+# [sp-train]'s tree: 3 train scenes (3 steps at batch 1, dp 1) and 4 val
+# scenes (2 a rank)
+SP_TRAIN_IMAGES, SP_VAL_IMAGES = 3, 4
+
+
+def _sp_inputs() -> dict:
+    """The W48 step's config (the recipe's model, f32, dropout 0, remat
+    off), seeded weights and one seeded scene at SP_PARITY_HW whose top
+    band holds every ignore pixel."""
+    from tpuseg_torch.config import make_config
+    from tpuseg_torch.models import get_model
+
+    sets = {"model.arch": "ocrnet.HRNet_Mscale",
+            "model.compute_dtype": "float32", "model.n_scales": (),
+            "model.ocr.dropout": 0.0, "model.remat": False,
+            "loss.supervised_mscale_wt": 0.05, "loss.ocr_alpha": 0.4,
+            "optim.lr": 5e-4}
+    base = get_model(make_config({**sets, "loss.loss_type": "ce"}))
+    _condition(base)
+    image, _, label = _fake_scene(2001, hw=SP_PARITY_HW)
+    label = label.copy()
+    label[:48] = 255
+    return {"sets": sets, "state": base.state_dict(), "image": image[None],
+            "label": label[None]}
+
+
+def _sp_steps(inp, mesh=None, copies: int = 1) -> dict:
+    """The recipe's RMI step, then the CE step, from the same weights, on
+    the card: on this rank's band under DDP when ``mesh`` is given, on a
+    batch of ``copies`` of the image otherwise. -> each loss's value and
+    gradients, the CE step's parameters and BN statistics after SGD, and
+    the sp collectives a step."""
+    from tpuseg_torch.config import make_config
+    from tpuseg_torch.models import get_model
+    from tpuseg_torch.parallel import shard_batch_spatial, spatial
+
+    model = get_model(make_config({**inp["sets"], "loss.loss_type": "ce"}))
+    model = model.to("cuda", memory_format=torch.channels_last).train()
+    net = model
+    if mesh is not None:
+        net = torch.nn.parallel.DistributedDataParallel(
+            model, broadcast_buffers=False,
+            device_ids=[torch.cuda.current_device()])
+    batch = {k: np.concatenate([inp[k]] * copies)
+             for k in ("image", "label")}
+    if mesh is not None:
+        batch = shard_batch_spatial(mesh, batch)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+             for k, v in batch.items()}
+    res = {}
+    for name in ("rmi", "ce"):
+        model.load_state_dict(inp["state"])
+        cfg = make_config({**inp["sets"], "loss.loss_type": name})
+        step, opt = _train_step_of(cfg, model)
+        spatial.reset_counts()
+        with spatial.sharded(None if mesh is None else mesh.bands):
+            loss = float(step(net, opt, batch, 0)["loss"])
+        res[name] = {"loss": loss, "counts": dict(spatial.COUNTS),
+                     "seconds": dict(spatial.SECONDS),
+                     "grads": {n: p.grad.detach().cpu()
+                               for n, p in model.named_parameters()}}
+    res["ce"]["params"] = {n: p.detach().cpu()
+                           for n, p in model.named_parameters()}
+    res["ce"]["stats"] = _stats(model)
+    return res
+
+
+def _deterministic() -> None:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def _child_sp_parity(tmp: str) -> None:
+    """A rank of [sp-parity]: gloo on the card, one sp group of 2, its band
+    of the image. Rank 0 writes the gradients and parameters (DDP leaves
+    them equal on both ranks: each rank writes their checksums)."""
+    from tpuseg_torch.parallel import init_distributed, make_mesh
+
+    init_distributed("cuda", backend="gloo")
+    _deterministic()
+    inp = torch.load(Path(tmp, "inputs.pt"), weights_only=False)
+    mesh = make_mesh(2)
+    torch.cuda.reset_peak_memory_stats()
+    res = _sp_steps(inp, mesh)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["sums"] = {name: float(sum(g.double().abs().sum()
+                                   for g in res[name]["grads"].values()))
+                   for name in ("rmi", "ce")}
+    res["sums"]["params"] = float(sum(
+        p.double().abs().sum() for p in res["ce"]["params"].values()))
+    if mesh.sp_index != 0:
+        for name in ("rmi", "ce"):
+            del res[name]["grads"]
+        del res["ce"]["params"]
+    res["modules"] = _reference_modules()
+    torch.save(res, Path(tmp, f"rank{mesh.sp_index}.pt"))
+
+
+def phase_sp_parity(card_info: str) -> None:
+    """W48 ``HRNet_Mscale`` at full width in f32 (TF32 off, cuDNN
+    deterministic), one SP_PARITY_HW image, as two gloo ranks of one sp
+    group on the card (``mesh.model_parallelism = 2``, dp 1: each rank
+    its band of rows, halo exchanges through every conv and resize, the
+    OCR gather and RMI's sums over the group) under DDP, against one
+    process on the whole image. Held for a CE step: the ranks' mean loss,
+    the parameters after SGD and the BN running statistics within
+    SP_PARITY_TOL, the gradients (L1-rel over every parameter) within 1e-4
+    or SP_GRAD_FLOORS times the f32 floor (the one process on a batch of
+    the image twice vs once), whichever is larger; both ranks' gradients
+    and parameters equal. Printed, not held: the recipe's RMI step's loss
+    and gradient gaps (its 9x9 solves amplify cuDNN's f32 differences,
+    PR 3)."""
+    out = Path("chiprun_out/sp_parity")
+    out.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        inp = _sp_inputs()
+        torch.save(inp, Path(tmp, "inputs.pt"))
+        port = str(_free_port())
+        procs = []
+        try:
+            for rank in (0, 1):
+                env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
+                           WORLD_SIZE="2", MASTER_ADDR="localhost",
+                           MASTER_PORT=port)
+                log_f = open(out / f"rank{rank}.log", "w")
+                procs.append(subprocess.Popen(
+                    [sys.executable, __file__, "--child", "sp-parity", tmp],
+                    stdout=log_f, stderr=subprocess.STDOUT, env=env,
+                    start_new_session=True))
+                log_f.close()
+            flags = (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark)
+            _deterministic()
+            try:
+                one = _sp_steps(inp)
+                twice = _sp_steps(inp, copies=2)
+            finally:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.deterministic,
+                 torch.backends.cudnn.benchmark) = flags
+            rcs = [p.wait(timeout=RANK_TIMEOUT) for p in procs]
+        finally:
+            for p in procs:
+                _kill_group(p)
+        if rcs != [0, 0]:
+            raise AssertionError(
+                f"[sp-parity] ranks exited {rcs}: "
+                + (out / "rank0.log").read_text()[-3000:])
+        ranks = [torch.load(Path(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in (0, 1)]
+    gaps, floor = {}, {}
+    for name in ("ce", "rmi"):
+        loss = (ranks[0][name]["loss"] + ranks[1][name]["loss"]) / 2
+        gaps[name] = {
+            "loss_rel": abs(loss - one[name]["loss"]) / abs(
+                one[name]["loss"]),
+            "grad_l1": _tree_l1(ranks[0][name]["grads"],
+                                one[name]["grads"])}
+        floor[name] = {
+            "loss_rel": abs(twice[name]["loss"] - one[name]["loss"]) / abs(
+                one[name]["loss"]),
+            "grad_l1": _tree_l1(twice[name]["grads"], one[name]["grads"])}
+    bounds = dict(SP_PARITY_TOL, grad_l1=max(
+        SP_PARITY_TOL["grad_l1"], SP_GRAD_FLOORS * floor["ce"]["grad_l1"]))
+    gaps["ce"]["params_l1"] = _tree_l1(ranks[0]["ce"]["params"],
+                                       one["ce"]["params"])
+    gaps["ce"]["stats_l1"] = max(_tree_l1(r["ce"]["stats"],
+                                          one["ce"]["stats"]) for r in ranks)
+    same = ranks[0]["sums"] == ranks[1]["sums"]
+    modules = sorted({m for r in ranks for m in r["modules"]})
+    c = ranks[0]["ce"]
+    log(f"[sp-parity] W48 HRNet_Mscale f32 1x{SP_PARITY_HW[0]}x"
+        f"{SP_PARITY_HW[1]}, TF32 off, cuDNN deterministic, 2 gloo ranks "
+        f"of one sp group on one card vs one process; CE step (loss "
+        f"{one['ce']['loss']:.6f}): " + ", ".join(
+            f"{k} {v:.3e} (bound {bounds[k]:.3g})"
+            for k, v in gaps["ce"].items())
+        + f"; the one process on the image twice vs once (the f32 floor): "
+        f"loss_rel {floor['ce']['loss_rel']:.3e}, grad_l1 "
+        f"{floor['ce']['grad_l1']:.3e}; the recipe's RMI step (loss "
+        f"{one['rmi']['loss']:.6f}, not held): loss_rel "
+        f"{gaps['rmi']['loss_rel']:.3e}, grad_l1 "
+        f"{gaps['rmi']['grad_l1']:.3e}, floor loss_rel "
+        f"{floor['rmi']['loss_rel']:.3e}, grad_l1 "
+        f"{floor['rmi']['grad_l1']:.3e}; ranks' gradients and parameters "
+        f"equal (checksums): {same}; a CE step's sp collectives on a rank: "
+        + ", ".join(f"{c['counts'][k]} {k} in {c['seconds'][k]:.3f} s"
+                    for k in c["counts"])
+        + f"; peak device memory by rank "
+        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; the ranks "
+        f"loaded {modules or 'no'} tpuseg / JAX modules; on {card_info}")
+    bad = [k for k, v in gaps["ce"].items() if not v <= bounds[k]]
+    if bad or not same or modules or not c["counts"]["halo"]:
+        raise AssertionError(f"[sp-parity] out of bounds: {bad}, ranks "
+                             f"equal {same}, modules {modules}")
+
+
+def phase_sp_train(card_info: str, root: str) -> dict:
+    """``train_cityscapes.yaml`` as shipped (W48 HRNet_Mscale, two-scale
+    1024x2048 fwd+bwd in bf16, RMI + aux + mscale CE, remat of stages
+    1-3, SGD + poly) plus ``mesh.model_parallelism=2`` and
+    ``train.batch_size=1`` through the CLI's code as two gloo ranks of one
+    sp group on the card (``torch.distributed.run --nproc-per-node 2``,
+    ``--multi-host``): each rank trains on its 512-row band of every crop.
+    ``test_mode`` over SP_TRAIN_IMAGES train scenes (3 steps) and
+    SP_VAL_IMAGES val scenes (2 a rank, whole images, both kernels), then
+    a termination request. Held: both ranks end, one checkpoint, the same
+    mIoU on both, every labelled val pixel counted once, 3 attention and
+    9 bottleneck launches a val image a rank, and rank 0's kernels agree
+    with their plain versions at its own inputs. Printed: s/step, img/s,
+    peak memory a rank, the sp collectives a step with their host seconds
+    and validation s/image. Returns the launches over both ranks."""
+    from tpuseg_torch.cli.main import load_config
+    from tpuseg_torch.data.setup import setup_data
+
+    out = Path("chiprun_out/sp_train")
+    out.mkdir(parents=True, exist_ok=True)
+    sub = _subset_tree(root, SP_TRAIN_IMAGES, SP_VAL_IMAGES)
+    logdir = str(Path(sub, "logs"))  # checkpoints stay out
+    sets = ["mesh.model_parallelism=2", "train.batch_size=1",
+            "train.test_mode=true", "train.log_every=1",
+            "model.use_pallas=true", "model.fused_stage1=true",
+            f"dataset.cityscapes_dir={sub}",
+            f"dataset.centroid_root={Path(sub, 'centroids')}"]
+    argv = ["train", "--multi-host", "--config", TRAIN_RECIPE, "--logdir",
+            logdir]
+    for item in sets:
+        argv += ["--set", item]
+    stop = Path(sub, "stop")
+    stop.touch()
+    what = (f"W48 two-scale 1024x2048 bf16, remat 1-3, dp 1 x sp 2 gloo "
+            f"ranks, {card_info}")
+    t0 = time.perf_counter()
+    text, ranks = _cli_ranks(2, {
+        "argv": argv, "backend": "gloo", "out": str(out / "sp"),
+        "stop": str(stop), "stop_rank": 1, "kernel_check": True,
+        "tag": "sp-train"}, "sp-train")
+    wall = time.perf_counter() - t0
+    for name in ("log.txt", "metrics.jsonl"):
+        shutil.copy(Path(logdir, name), out / name)
+    _log_ddp_rates("sp-train", text, what)
+    for m in re.finditer(r"epoch \d+: sp collectives a step [^\n]*", text):
+        log(f"[sp-train] {m.group(0)} ({what})")
+    ckpts = sorted(p.name for p in Path(logdir, "ckpt").glob("*.pt"))
+    cfg = load_config(TRAIN_RECIPE, sets)
+    _, val_loader, _ = setup_data(cfg, eval_mode="val", seed=cfg.train.seed)
+    labelled = sum(int((np.asarray(b["label"]) != 255).sum())
+                   for b in val_loader)
+    vals = [r["validations"] for r in ranks]
+    log(f"[sp-train] whole launch {wall:.1f} s; validations (epoch, mIoU, "
+        f"pixels) by rank {vals} (want epoch 0, {labelled} labelled "
+        f"pixels); images by rank {[r['images'] for r in ranks]}; launches "
+        f"by rank {[r['launches'] for r in ranks]}; peak device memory by "
+        f"rank " + ", ".join(f"{r['peak_gib']:.2f}" for r in ranks)
+        + " GiB; all_reduce calls from Python (halo exchanges, sp sums, "
+        "synced BN, losses, metrics) and their host seconds by rank: "
+        + ", ".join(f"{r['all_reduce']['calls']} in "
+                    f"{r['all_reduce']['s']:.2f} s" for r in ranks)
+        + f"; checkpoints {ckpts}")
+    bad = []
+    if vals[0] != vals[1] or len(vals[0]) != 1 or vals[0][0][0] != 0 or \
+            vals[0][0][2] != labelled:
+        bad.append(f"validations {vals}")
+    total = {"ocr_attention": 0, "bottleneck_fused": 0}
+    for r in ranks:
+        want = {"ocr_attention": 3 * r["images"],
+                "bottleneck_fused": 9 * r["images"]}
+        if r["images"] != SP_VAL_IMAGES // 2 or r["launches"] != want:
+            bad.append(f"rank {r['rank']} launches {r['launches']} for "
+                       f"{r['images']} images")
+        for k in total:
+            total[k] += r["launches"][k]
+    if ckpts != [f"ckpt_{SP_TRAIN_IMAGES}.pt"]:
+        bad.append(f"checkpoints {ckpts}")
+    if "dp 1 x sp 2" not in text or "termination requested" not in text:
+        bad.append("no dp 1 x sp 2 run stopped on its request")
+    if bad:
+        raise AssertionError(f"[sp-train] {bad}")
+    return total
+
+
 def child_main(argv: list) -> int:
     """A process this script starts: ``--child ddp-parity <dir>``,
-    ``--child loader <json spec>`` or ``--child cli <json spec>``."""
+    ``--child sp-parity <dir>``, ``--child loader <json spec>`` or
+    ``--child cli <json spec>``."""
     kind, arg = argv
     if kind == "ddp-parity":
         _child_ddp_parity(arg)
+    elif kind == "sp-parity":
+        _child_sp_parity(arg)
     elif kind == "loader":
         _child_loader(json.loads(arg))
     else:
@@ -3123,6 +3433,8 @@ def run() -> int:
         timed(phase_ddp_parity, card_info)
         ddp_launches = timed(phase_ddp_train, card_info, root)
         timed(phase_ddp_nccl, card_info, root)
+        timed(phase_sp_parity, card_info)
+        sp_launches = timed(phase_sp_train, card_info, root)
     with tempfile.TemporaryDirectory() as mroot:
         t0 = time.perf_counter()
         _write_fake_mapillary(mroot)
@@ -3140,6 +3452,7 @@ def run() -> int:
         r["mscale_launches"] = mscale_launches[r["name"]]
         r["mapillary_launches"] = mapillary_launches[r["name"]]
         r["ddp_launches"] = ddp_launches[r["name"]]
+        r["sp_launches"] = sp_launches[r["name"]]
     log(f"[total] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s")
     ref_mods = _reference_modules()
     log(f"[imports] tpuseg / JAX modules loaded: {ref_mods}")

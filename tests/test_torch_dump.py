@@ -430,3 +430,95 @@ def test_auto_labelling_round_trip(cs_tree, end_to_end, tmp_path,
         assert keep.any() and not keep.all()
         want = np.where(keep, pred, 255)
         np.testing.assert_array_equal(sample["label"], want)
+
+
+def _orbax_to_pth():
+    """``scripts/orbax_to_pth.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "orbax_to_pth", os.path.join(REPO, "scripts", "orbax_to_pth.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_orbax_snapshot_converts_to_reference_pth(end_to_end):
+    """The fixture's tpuseg snapshot through ``scripts/orbax_to_pth.py``:
+    the same state dict, tensor for tensor, as the .pth made from the same
+    weights, loaded strictly by the port's ``--checkpoint`` path."""
+    import torch
+
+    from tpuseg_torch.config import eval_model_config
+    from tpuseg_torch.convert import load_reference_checkpoint
+
+    _, _, _, tmp, sets, ckpt = end_to_end
+    out = str(tmp / "converted.pth")
+    skipped = []
+    _orbax_to_pth().convert(str(tmp / "snapshot"), out, sets["model.arch"],
+                            log=skipped.append)
+    assert skipped == []
+    got = torch.load(out, weights_only=True)
+    want = torch.load(ckpt, weights_only=True)
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+    load_reference_checkpoint(
+        get_model(eval_model_config(make_config(sets))), out)
+
+
+def test_orbax_snapshot_of_another_class_count(tmp_path):
+    """A 65-class snapshot (Mapillary's head) converted for 19 classes:
+    tpuseg's forgiving merge skips, and logs, exactly the leaves whose
+    shape depends on the class count, which keep the fresh model's
+    values; every other tensor is the snapshot's."""
+    import jax.numpy as jnp
+    import orbax.checkpoint as ocp
+    import torch
+
+    from _torch_port import flax_shapes, random_variables
+    from tpuseg.models import get_model as jax_model
+    from tpuseg_torch.convert import state_dict_from_flax
+
+    arch = "ocrnet.HRNet_Mscale_Tiny"
+    example = jnp.zeros((1, 64, 64, 3))
+
+    def shapes(n):
+        return flax_shapes(jax_model(jax_config(
+            {"model.arch": arch, "dataset.num_classes": n})), example,
+            train=False)
+
+    m65 = jax_model(jax_config({"model.arch": arch,
+                                "dataset.num_classes": 65}))
+    variables = random_variables(m65, np.random.RandomState(3), example,
+                                 train=False)
+    snapshot = str(tmp_path / "snapshot65")
+    ckptr = ocp.StandardCheckpointer()
+    ckptr.save(snapshot, variables)
+    ckptr.wait_until_finished()
+    skipped = []
+    got = _orbax_to_pth().convert(snapshot, str(tmp_path / "out.pth"), arch,
+                                  num_classes=19, log=skipped.append)
+
+    def flat(tree, prefix=""):
+        if hasattr(tree, "items"):
+            for k, v in tree.items():
+                yield from flat(v, f"{prefix}{k}/")
+        else:
+            yield prefix[:-1], tuple(tree.shape)
+
+    s65, s19 = shapes(65), shapes(19)
+    changed = {k for coll in ("params", "batch_stats")
+               for (k, a), (_, b) in zip(flat(s65[coll]), flat(s19[coll]))
+               if a != b}
+    assert changed and sorted(skipped) == sorted(
+        f"Skipped loading parameter {k}" for k in changed)
+    want = state_dict_from_flax(variables["params"],
+                                variables["batch_stats"], arch=arch)
+    assert list(got) == list(want)
+    differ = [k for k in want if want[k].shape != got[k].shape]
+    assert differ and all(("cls_head" in k or "aux_head" in k)
+                          for k in differ)
+    for k in want:
+        if k not in differ:
+            assert torch.equal(got[k], want[k]), k

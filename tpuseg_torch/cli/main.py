@@ -22,6 +22,10 @@ as data-parallel ranks, rank 0 the primary:
 
   python -m torch.distributed.run --nproc-per-node 8 -m tpuseg_torch.cli \
       train --multi-host --config .../train_cityscapes.yaml
+
+With ``--set mesh.model_parallelism=N`` the ranks train as dp x sp: each
+group of N consecutive ranks splits every image's rows into N bands
+(``parallel/spatial.py``).
 """
 from __future__ import annotations
 

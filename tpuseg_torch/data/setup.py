@@ -112,12 +112,18 @@ def relaxed_label_transform(cfg: Config, ignore_label: int,
 
 def setup_data(cfg: Config, eval_mode: Optional[str] = None,
                num_shards: int = 1, shard: int = 0, seed: int = 0,
-               is_primary: bool = True):
+               is_primary: bool = True, val_shards: Optional[int] = None,
+               val_shard: Optional[int] = None):
     """-> (train_loader | None, val_loader, train_set | None).
 
     ``eval_mode``: None (train+val), 'val', 'trn', or 'folder'
-    (reference: datasets/__init__.py:140-147).
+    (reference: datasets/__init__.py:140-147). The val split is sharded
+    ``val_shards`` ways (``num_shards`` unless given): under dp x sp the
+    train data is sharded over the dp groups and the val split over every
+    rank.
     """
+    if val_shards is None:
+        val_shards, val_shard = num_shards, shard
     d = cfg.dataset
     if d.loader not in ("threaded", "grain"):
         raise ValueError(
@@ -145,7 +151,7 @@ def setup_data(cfg: Config, eval_mode: Optional[str] = None,
             drop_last=True, num_workers=d.num_workers)
         val_loader = BatchLoader(
             val_set, cfg.eval.batch_size,
-            sampler=ShardedEpochSampler(len(val_set), num_shards, shard,
+            sampler=ShardedEpochSampler(len(val_set), val_shards, val_shard,
                                         shuffle=False, pad=False,
                                         seed=seed),
             num_workers=2)
@@ -158,7 +164,7 @@ def setup_data(cfg: Config, eval_mode: Optional[str] = None,
         joint_transform=build_val_joint_transform(cfg, ignore_label),
         img_transform=None, label_transform=None,
         eval_folder=d.eval_folder, seed=seed, is_primary=is_primary)
-    val_sampler = ShardedEpochSampler(len(val_set), num_shards, shard,
+    val_sampler = ShardedEpochSampler(len(val_set), val_shards, val_shard,
                                       shuffle=False, pad=False, seed=seed)
     # batched validation (reference --bs_val): requires fixed-res val
     # images; the final ragged batch compiles one extra eval graph

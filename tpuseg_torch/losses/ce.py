@@ -6,13 +6,15 @@ loss/utils.py:70-134). Logits are NHWC, labels NHW, as in ``tpuseg``.
 ranks: the denominators and batch histograms are summed across ranks, so
 DDP's mean of the ranks' gradients is the gradient of the global loss, and
 the mean of the ranks' losses is the global loss. In one process the
-result is the same either way.
+result is the same either way. On bands (dp x sp, ``parallel/spatial.py``)
+the global sums already cover every pixel once; a per-image histogram or
+denominator is summed over the image's bands.
 """
 from __future__ import annotations
 
 import torch
 
-from tpuseg_torch.parallel import global_sum, process_count
+from tpuseg_torch.parallel import global_sum, process_count, spatial
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -49,8 +51,7 @@ def _class_weights(labels: torch.Tensor, num_classes: int,
         num_classes + 1)
     bins = torch.bincount((idx.reshape(b, -1) + offset).reshape(-1),
                           minlength=b * (num_classes + 1))
-    if data_parallel:
-        bins = global_sum(bins)
+    bins = global_sum(bins) if data_parallel else spatial.band_sum(bins)
     bins = bins.reshape(b, num_classes + 1)[:, :num_classes].float()
     hist_norm = bins / bins.sum(dim=1, keepdim=True).clamp_min(1.0)
     present = (bins != 0).float()
@@ -87,6 +88,6 @@ def image_weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         weights = _class_weights(labels, num_classes, upper_bound, norm)
     pix_w = weights.gather(1, safe.reshape(b, -1)).reshape(safe.shape)
     pix_w = torch.where(valid, pix_w, torch.zeros_like(pix_w))
-    per_image = (nll * pix_w).sum(dim=(1, 2)) / pix_w.sum(
-        dim=(1, 2)).clamp_min(1e-8)
+    per_image = (nll * pix_w).sum(dim=(1, 2)) / spatial.band_sum(
+        pix_w.sum(dim=(1, 2))).clamp_min(1e-8)
     return per_image.sum() * world

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from tpuseg_torch.parallel import global_sum, process_count
+from tpuseg_torch.parallel import global_sum, process_count, spatial
 
 
 def _class_weights(hist_src: torch.Tensor, num_classes: int,
@@ -64,15 +64,17 @@ def relaxed_soft_nll(logits: torch.Tensor, relaxed_target: torch.Tensor,
         border_weights = 1.0 / border_weights
 
     world = process_count() if data_parallel else 1
-    per_image = full.sum(dim=(1, 2))                          # (B, C+1)
+    local = full.sum(dim=(1, 2))                              # (B, C+1)
     if batch_weighting:
-        hist = per_image.sum(dim=0)
+        hist = local.sum(dim=0)
         if world > 1:
             hist = global_sum(hist)
         wts = _class_weights(hist, num_classes, upper_bound,
                              norm).expand(logits.shape[0], num_classes)
     else:
-        wts = _class_weights(per_image, num_classes, upper_bound, norm)
+        # over the image's bands on dp x sp (parallel/spatial.py)
+        wts = _class_weights(spatial.band_sum(local), num_classes,
+                             upper_bound, norm)
 
     # customsoftmax in f32 (reference: loss/utils.py:137-147)
     soft = torch.softmax(logits.float(), dim=-1)
@@ -85,5 +87,5 @@ def relaxed_soft_nll(logits: torch.Tensor, relaxed_target: torch.Tensor,
     # per-image normalisation by the non-ignored pixel count (+1 against a
     # division by 0, reference: loss/utils.py:200-205), summed over the batch
     h, w = logits.shape[1:3]
-    denom = h * w - ignore_mask.sum(dim=(1, 2)) + 1.0
+    denom = spatial.band_sum(h * w - ignore_mask.sum(dim=(1, 2))) + 1.0
     return (loss_matrix.sum(dim=(1, 2)) / denom).sum() * world

@@ -20,6 +20,17 @@ something ``tpuseg`` does not (ROADMAP Queue 3).
 where ``jnp.linalg.cholesky`` returns NaN, so the factorisations use
 ``cholesky_ex`` and flag a matrix by its ``info`` or a non-finite factor.
 Nothing here reads a device value on the host.
+
+On bands (dp x sp, ``parallel/spatial.py``) the pooled rows do not split
+evenly (a 1024-row crop pools to 257 rows, and the window of pooled row
+128 straddles the band boundary at row 512). Each pooled row belongs to
+the band holding its window's first row (the top band also takes the
+window that starts in the padding); each neighbourhood vector to the
+band of its first pooled row. A band pools the input rows those vectors
+read, halo included, so the pooled rows next to a boundary are computed
+from the same pixels as in one process. The means and the three 9x9
+covariances are sums over the sp group, and the Cholesky chain then runs
+alike on every rank of the group (``spatial``'s gradient convention).
 """
 from __future__ import annotations
 
@@ -29,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from tpuseg_torch.ops.resize import avg_pool2d, max_pool2d
-from tpuseg_torch.parallel import global_sum, process_count
+from tpuseg_torch.parallel import global_sum, process_count, spatial
 
 _CLIP_MIN = 1e-6      # post-sigmoid clip (reference: rmi.py:11)
 _POS_ALPHA = 5e-4     # diagonal jitter for PD-ness (reference: rmi.py:12)
@@ -43,6 +54,47 @@ def _neighborhood_vectors(x: torch.Tensor, radius: int) -> torch.Tensor:
     v = torch.stack([x[:, :, y:y + nh, xx:xx + nw]
                      for y in range(radius) for xx in range(radius)], dim=2)
     return v.reshape(b, c, radius * radius, nh * nw)
+
+
+def _pooled(onehot: torch.Tensor, probs: torch.Tensor, pool_size: int,
+            pool_way: str, radius: int):
+    """The pooled maps (NCHW, f32) whose neighbourhood vectors this rank
+    sums, and the image's rows of vectors: on bands, the pooled rows of
+    the band's own vectors (see the module docstring)."""
+    pad = pool_size // 2 if pool_size > 1 else 0
+    bands = spatial.active()
+    if bands is None:
+        if pool_size > 1:
+            pool = avg_pool2d if pool_way == "avg" else max_pool2d
+            onehot = pool(onehot, pool_size, pool_size, pad)
+            probs = pool(probs, pool_size, pool_size, pad)
+        return onehot, probs, onehot.shape[2] - radius + 1
+    k = max(pool_size, 1)
+    h = onehot.shape[2]
+    total = h * bands.size
+    n_rows = spatial.window_rows(total, k, k, pad) - radius + 1
+
+    def owner(i):  # the band of pooled row i's first input row
+        return min(max(k * i - pad, 0), total - 1) // h
+
+    needs = []
+    for b in range(bands.size):
+        rows = [j for j in range(n_rows) if owner(j) == b]
+        j0, j1 = (rows[0], rows[-1] + 1) if rows else (0, 0)
+        # the input rows of pooled rows [j0, j1 + radius - 1)
+        needs.append((k * j0 - pad, k * (j1 + radius - 1) - pad))
+    both = spatial.gather_rows(torch.cat([onehot, probs], dim=1), needs)
+    if pool_size > 1:
+        if pool_way == "avg":
+            both = F.avg_pool2d(both, k, k, (0, pad), count_include_pad=True)
+        else:
+            # rows past the image are the pool's padding
+            lo, hi = needs[bands.index]
+            rows = torch.arange(lo, hi, device=both.device).view(1, 1, -1, 1)
+            both = F.max_pool2d(both.masked_fill(
+                (rows < 0) | (rows >= total), float("-inf")), k, k, (0, pad))
+    c = onehot.shape[1]
+    return both[:, :c], both[:, c:], n_rows
 
 
 def _safe_cholesky(m: torch.Tensor, eye: torch.Tensor, jitter: float,
@@ -102,29 +154,30 @@ def rmi_loss(logits: torch.Tensor, labels: torch.Tensor,
     probs = torch.sigmoid(logits) * validf[..., None] + _CLIP_MIN
     # NCHW views for the pools (reference: rmi.py:148-163)
     onehot, probs = onehot.permute(0, 3, 1, 2), probs.permute(0, 3, 1, 2)
-    if pool_size > 1:
-        pad = pool_size // 2
-        if pool_way == "avg":
-            pool = avg_pool2d
-        elif pool_way == "max":
-            pool = max_pool2d
-        else:
-            raise ValueError(pool_way)
-        onehot = pool(onehot, pool_size, pool_size, pad)
-        probs = pool(probs, pool_size, pool_size, pad)
+    if pool_way not in ("avg", "max"):
+        raise ValueError(pool_way)
+    onehot, probs, n_rows = _pooled(onehot, probs, pool_size, pool_way,
+                                    radius)
 
     la = _neighborhood_vectors(onehot, radius).detach()   # (B, C, d, N)
     pr = _neighborhood_vectors(probs, radius)
-    la = la - la.mean(dim=3, keepdim=True)
-    pr = pr - pr.mean(dim=3, keepdim=True)
+    n = n_rows * (onehot.shape[-1] - radius + 1)          # the image's N
+    inv_n = 1.0 / n
+    if spatial.active() is None:
+        la = la - la.mean(dim=3, keepdim=True)
+        pr = pr - pr.mean(dim=3, keepdim=True)
+    else:
+        d = la.shape[2]
+        means = spatial.band_sum(torch.cat(
+            [la.sum(dim=3, keepdim=True), pr.sum(dim=3, keepdim=True)],
+            dim=2)) * inv_n
+        la, pr = la - means[:, :, :d], pr - means[:, :, d:]
 
     # unit-scale covariances: logdet(S + aI) = d*log(N) + logdet(S/N +
     # (a/N)I); tpuseg/losses/rmi.py:139-166 derives the jitter floors
-    n = la.shape[-1]
-    inv_n = 1.0 / n
-    la_cov = la @ la.transpose(2, 3) * inv_n             # (B, C, d, d)
-    pr_cov = pr @ pr.transpose(2, 3) * inv_n
-    la_pr_cov = la @ pr.transpose(2, 3) * inv_n
+    covs = torch.stack([la @ la.transpose(2, 3), pr @ pr.transpose(2, 3),
+                        la @ pr.transpose(2, 3)])
+    la_cov, pr_cov, la_pr_cov = spatial.band_sum(covs) * inv_n
 
     eye = torch.eye(half_d, dtype=torch.float32, device=logits.device)
     a_pr = max(pos_alpha / n, 1e-4)

@@ -11,6 +11,9 @@ The module tree reproduces the reference's state-dict names: ``conv1``,
 ``stage{s}.{m}.fuse_layers.{i}.{j}.0/1`` (j > i) and
 ``.fuse_layers.{i}.{j}.{k}.0/1`` (j < i), with ``None`` in identity slots.
 
+On bands (dp x sp, ``parallel/spatial.py``) the upsamples take the
+image's global sizes; the convs fetch their own halos.
+
 ``fused_stage1`` routes the eval-mode stage-1 identity bottlenecks through
 the fused kernel (tpuseg_torch/kernels/bottleneck_fused.py).
 
@@ -37,6 +40,7 @@ from tpuseg_torch.kernels.bottleneck_fused import (
 )
 from tpuseg_torch.models.layers import Norm, conv
 from tpuseg_torch.ops import resize_bilinear
+from tpuseg_torch.parallel import spatial
 
 
 @dataclass(frozen=True)
@@ -258,7 +262,8 @@ class HRModule(nn.Module):
                     contrib = ys[j]
                 elif j > i:
                     # f32 resize island (tpuseg hrnet.py:190-191)
-                    contrib = resize_bilinear(layer(ys[j]), ys[i].shape[-2:],
+                    contrib = resize_bilinear(layer(ys[j]),
+                                              spatial.global_size(ys[i]),
                                               self.align_corners)
                 else:
                     contrib = layer(ys[j])
@@ -386,7 +391,7 @@ class HRNetV2(nn.Module):
                 xs = (remat_call(hrm, *xs) if t + 1 in remat
                       else hrm(*xs))
         # final 4-branch upsample-concat (reference: hrnetv2.py:438-447)
-        size = xs[0].shape[-2:]
+        size = spatial.global_size(xs[0])
         ups = [xs[0]] + [resize_bilinear(b, size, self.align_corners)
                          for b in xs[1:]]
         feats = torch.cat([u.to(self.dtype) for u in ups], dim=1)

@@ -23,6 +23,13 @@ batch norm does under the mesh (``tpuseg/models/layers.py:8-13``):
 ``_GlobalBatchNorm`` all-reduces the per-channel sums in the forward and
 the gradient sums in the backward. ``nn.SyncBatchNorm`` raises on CPU
 tensors, and ``convert_sync_batchnorm`` would replace this class.
+
+Under dp x sp (``parallel/spatial.py``) each rank holds a band of every
+image: ``Conv2d`` then fetches the halo rows its output band reads from the
+neighbouring bands and convolves with no H padding, and batch norm's
+global statistics already cover every pixel once. The OCR block's class
+proxies are the same on every rank of an sp group (``spatial.replicated``):
+there batch norm counts each value once for Bessel's factor.
 """
 from __future__ import annotations
 
@@ -33,22 +40,30 @@ import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tpuseg_torch.parallel import process_count
+from tpuseg_torch.parallel import process_count, spatial
 
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` whose f32 parameters are cast to the input's dtype.
     With ``nchw`` set, input and weight go to NCHW memory first (cuDNN
-    picks channels_last when either is; see ``heads.py`` for why)."""
+    picks channels_last when either is; see ``heads.py`` for why). On a
+    band (``spatial.sharded``), a conv that reads across rows takes its
+    halo first."""
 
     nchw = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         weight = self.weight.to(x.dtype)
+        padding = self.padding
+        if spatial.active() is not None and (
+                self.kernel_size[0], self.stride[0], padding[0]) != (1, 1, 0):
+            x = spatial.conv_rows(x, self.kernel_size[0], self.stride[0],
+                                  padding[0], self.dilation[0])
+            padding = (0, padding[1])
         if self.nchw:
             x, weight = x.contiguous(), weight.contiguous()
-        return F.conv2d(x, weight, bias, self.stride, self.padding,
+        return F.conv2d(x, weight, bias, self.stride, padding,
                         self.dilation, self.groups)
 
 
@@ -129,9 +144,12 @@ class BatchNorm2d(nn.BatchNorm2d):
         ``world_size`` values, and one value over all ranks gives
         ``_single_value``'s result (mean = x, variance 0). The running
         variance takes Bessel's factor ``n / max(n - 1, 1)`` of the global
-        count ``n``."""
+        count ``n``, each value held alike by the ranks of an sp group
+        (``spatial.replicated``) counted once."""
         y, mean, var, n = _GlobalBatchNorm.apply(x, self.weight, self.bias,
                                                  self.eps)
+        # a tensor held alike by every rank of an sp group counts once
+        n = n / spatial.replicas()
         if self.track_running_stats:
             with torch.no_grad():
                 self.num_batches_tracked.add_(1)

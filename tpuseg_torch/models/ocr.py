@@ -9,6 +9,12 @@ network/ocrnet.py:42-91):
    the K classes, ``1/sqrt(d)`` scaling;
 3. ``SpatialOCR``: concat(context, feats) -> 1x1 -> dropout.
 
+On bands (dp x sp, ``parallel/spatial.py``) the gather's softmax runs over
+every pixel of the image: its max, its normaliser and the class context
+are sums (a max) over the sp group, and the class proxies are then the
+same on every rank of the group (``spatial.replicated``), so the
+distribute step is band-local.
+
 Softmaxes run in f32. Module names are the reference's
 (``ocr_distri_head.object_context_block.f_pixel.{0,1.0,2,3.0}``, ...).
 ``use_pallas`` (the ``tpuseg`` switch name) routes the eval-mode attention
@@ -24,6 +30,7 @@ from tpuseg_torch.kernels.ocr_attention import (
     object_attention_reference,
 )
 from tpuseg_torch.models.layers import ConvNormAct, bn_relu, conv
+from tpuseg_torch.parallel import spatial
 
 
 def _nhwc_flat(x: torch.Tensor) -> torch.Tensor:
@@ -41,8 +48,16 @@ def spatial_gather(feats: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
     # axis 1 of (B, HW, K) runs PyTorch's strided "spatial" softmax kernel,
     # measured at 24 ms over the three scales of one 1024x2048 image on an
     # H100 (14% of the device time)
-    p = torch.softmax(probs.float().reshape(b, k, -1), dim=-1)
-    ctx = torch.bmm(p.to(feats.dtype).float(), f.float())
+    logits = probs.float().reshape(b, k, -1)
+    if spatial.active() is None:
+        p = torch.softmax(logits, dim=-1)
+        ctx = torch.bmm(p.to(feats.dtype).float(), f.float())
+        return ctx.to(feats.dtype)
+    # the softmax over the whole image's pixels: the max shifts without a
+    # gradient (the softmax does not depend on it)
+    e = torch.exp(logits - spatial.band_max(logits.amax(-1, keepdim=True)))
+    p = e / spatial.band_sum(e.sum(-1, keepdim=True))
+    ctx = spatial.band_sum(torch.bmm(p.to(feats.dtype).float(), f.float()))
     return ctx.to(feats.dtype)
 
 
@@ -69,8 +84,9 @@ class ObjectAttention(nn.Module):
         # the K proxies as a (K x 1) image for the 1x1 convs
         proxy_img = proxy.permute(0, 2, 1)[..., None]
         q = _nhwc_flat(self.f_pixel(x))
-        key = _nhwc_flat(self.f_object(proxy_img))
-        val = _nhwc_flat(self.f_down(proxy_img))
+        with spatial.replicated():
+            key = _nhwc_flat(self.f_object(proxy_img))
+            val = _nhwc_flat(self.f_down(proxy_img))
         # the fused kernel is inference-only, as in tpuseg (ocr.py:90)
         if self.use_pallas and not self.training:
             context = fused_object_attention(q.contiguous(), key.contiguous(),

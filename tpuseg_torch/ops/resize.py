@@ -25,6 +25,14 @@ a gather. It computes the same linear map as the autograd of
 ``avg_pool2d`` and ``max_pool2d`` (``tpuseg/ops/resize.py:187-238``) take
 NCHW-logical tensors like the resizes above (``tpuseg``'s take NHWC) and
 compute in f32, cast back to the input's dtype.
+
+On bands (dp x sp, ``parallel/spatial.py``) sizes are the image's global
+sizes (``scale_as`` reads ``y``'s global height), and the H axis is
+resampled from global row indices: source rows are clamped only at the
+image's top and bottom, and a band reads the rows it needs past its edges
+from its neighbours. ``F.interpolate`` on a bare band would clamp at the
+band's edges, and so be wrong on exactly the rows next to a band boundary.
+Pool windows sit on the global grid the same way.
 """
 from __future__ import annotations
 
@@ -33,15 +41,27 @@ import math
 import torch
 import torch.nn.functional as F
 
+from tpuseg_torch.parallel import spatial
+
 
 def resize_bilinear(x: torch.Tensor, size, align_corners: bool = False
                     ) -> torch.Tensor:
-    """Bilinear resize of NCHW ``x`` to ``size=(H, W)``; f32 arithmetic,
-    result in ``x.dtype``. Same-size resizes return ``x`` itself."""
+    """Bilinear resize of NCHW ``x`` to ``size=(H, W)`` (the image's size
+    on bands); f32 arithmetic, result in ``x.dtype``. Same-size resizes
+    return ``x`` itself."""
     size = (int(size[0]), int(size[1]))
-    if tuple(x.shape[-2:]) == size:
+    if spatial.global_size(x) == size:
         return x
-    y = F.interpolate(x.float(), size=size, mode="bilinear",
+    y = x.float()
+    if spatial.active() is not None:
+        # H from global rows, then W alone (H same-size: F.interpolate's
+        # identity map there)
+        if spatial.global_height(x) != size[0]:
+            y = spatial.resize_rows(y, size[0], align_corners)
+        if y.shape[-1] == size[1]:
+            return y.to(x.dtype)
+        size = (y.shape[2], size[1])
+    y = F.interpolate(y, size=size, mode="bilinear",
                       align_corners=align_corners)
     return y.to(x.dtype)
 
@@ -49,7 +69,7 @@ def resize_bilinear(x: torch.Tensor, size, align_corners: bool = False
 def resize_x(x: torch.Tensor, scale: float, align_corners: bool = False
              ) -> torch.Tensor:
     """Scale-factor resize: ``out = floor(in * scale)`` per axis."""
-    h, w = x.shape[-2:]
+    h, w = spatial.global_size(x)
     size = (int(math.floor(h * scale)), int(math.floor(w * scale)))
     return resize_bilinear(x, size, align_corners)
 
@@ -58,7 +78,7 @@ def scale_as(x: torch.Tensor, y: torch.Tensor, align_corners: bool = False
              ) -> torch.Tensor:
     """Resize ``x`` to the spatial size of ``y`` (reference:
     network/mynn.py:70-84)."""
-    return resize_bilinear(x, y.shape[-2:], align_corners)
+    return resize_bilinear(x, spatial.global_size(y), align_corners)
 
 
 def avg_pool2d(x: torch.Tensor, window: int, stride: int | None = None,
@@ -66,7 +86,8 @@ def avg_pool2d(x: torch.Tensor, window: int, stride: int | None = None,
     """Average pool that counts the zero padding in each window's divisor
     (``count_include_pad``, torch's default; the RMI loss's downsample,
     reference: loss/rmi.py:154-155)."""
-    y = F.avg_pool2d(x.float(), window, stride or window, padding,
+    y, pad = _band_rows(x.float(), window, stride or window, padding, 0.0)
+    y = F.avg_pool2d(y, window, stride or window, pad,
                      count_include_pad=True)
     return y.to(x.dtype)
 
@@ -75,6 +96,29 @@ def max_pool2d(x: torch.Tensor, window: int, stride: int | None = None,
                padding: int = 0, ceil_mode: bool = False) -> torch.Tensor:
     """Max pool; ``ceil_mode`` keeps the partial windows at the trailing
     edge (the Caffe-style SENet stem, reference SEresnext.py:269-272)."""
-    y = F.max_pool2d(x.float(), window, stride or window, padding,
-                     ceil_mode=ceil_mode)
+    y, pad = _band_rows(x.float(), window, stride or window, padding,
+                        float("-inf"), ceil_mode)
+    y = F.max_pool2d(y, window, stride or window, pad, ceil_mode=ceil_mode)
     return y.to(x.dtype)
+
+
+def _band_rows(x: torch.Tensor, window: int, stride: int, padding: int,
+               fill: float, ceil_mode: bool = False):
+    """-> (the rows a pool of ``x`` reads, its padding): on bands, the
+    band's windows on the global grid, rows past the image's edges
+    ``fill`` (the pool's own padding value) and no H padding; otherwise
+    ``x`` and ``padding``."""
+    bands = spatial.active()
+    if bands is None:
+        return x, padding
+    h_in = spatial.global_height(x)
+    h_out = spatial.split_rows(
+        spatial.window_rows(h_in, window, stride, padding,
+                            ceil_mode=ceil_mode), bands, "pool output")
+    needs = spatial.window_needs(h_out, bands, window, stride, padding)
+    y = spatial.gather_rows(x, needs)
+    lo, hi = needs[bands.index]
+    if fill and (lo < 0 or hi > h_in):
+        rows = torch.arange(lo, hi, device=x.device).view(1, 1, -1, 1)
+        y = y.masked_fill((rows < 0) | (rows >= h_in), fill)
+    return y, (0, padding)

@@ -1,4 +1,4 @@
-"""The data-parallel process group (port of ``tpuseg/parallel/mesh.py``).
+"""The (dp, sp) process grid (port of ``tpuseg/parallel/mesh.py``).
 
 ``tpuseg`` runs one process a host over a named-axis device mesh: GSPMD
 inserts the gradient all-reduce, the global batch-norm statistics and the
@@ -15,20 +15,31 @@ engine, train.py:290-300):
   batch's denominators (:func:`global_sum`);
 - host-side metrics are summed by :func:`multihost_sum`.
 
-``tpuseg``'s ``make_mesh``, ``batch_sharding``, ``shard_batch`` and
-``replicate`` have no counterpart under DDP: the module is replicated by
-DDP and every rank places its own shard on its own device.
-``spatial_sharding`` and ``shard_batch_spatial`` (dp x sp) are not ported
-(ROADMAP Queue 1 item 5); ``Trainer`` refuses ``mesh.model_parallelism >
-1``.
+``tpuseg``'s ``batch_sharding``, ``shard_batch`` and ``replicate`` have no
+counterpart under DDP: the module is replicated by DDP and every rank
+places its own shard on its own device.
+
+dp x sp (``mesh.model_parallelism = sp > 1``): :func:`make_mesh` arranges
+the ``world = dp * sp`` ranks as ``tpuseg``'s mesh reshapes its devices,
+``(world // sp, sp)``, so an sp group is ``sp`` consecutive ranks with a
+process group of its own. The ranks of an sp group load the same images,
+and :func:`shard_batch_spatial` keeps this rank's band of rows (the
+counterpart of ``tpuseg``'s ``spatial_sharding`` layout); the ops then run
+on bands under ``spatial.sharded(mesh.bands)`` (``parallel/spatial.py``).
+DDP and batch norm still reduce over the world group: every pixel of the
+global batch once.
 """
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from tpuseg_torch.parallel.spatial import Bands
 
 
 def init_distributed(device: str = "cuda", backend: str | None = None
@@ -123,3 +134,61 @@ def sync_hosts() -> None:
     datasets/uniform.py:265)."""
     if process_count() > 1:
         dist.barrier()
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """This rank's place in the (dp, sp) grid: data-parallel group
+    ``dp_index`` of ``dp``, and its band layout (None when sp is 1)."""
+
+    dp: int
+    dp_index: int
+    bands: Optional[Bands] = None
+
+    @property
+    def sp(self) -> int:
+        return self.bands.size if self.bands is not None else 1
+
+    @property
+    def sp_index(self) -> int:
+        return self.bands.index if self.bands is not None else 0
+
+
+def make_mesh(model_parallelism: int = 1) -> Mesh:
+    """The (dp, sp) grid over every rank, ``sp = model_parallelism``
+    consecutive ranks an sp group (``tpuseg``'s ``make_mesh``). With sp >
+    1 every rank creates every sp group's process group, in the same order
+    (``dist.new_group`` is collective). Raises unless the ranks split into
+    whole sp groups."""
+    sp, world = int(model_parallelism), process_count()
+    if sp < 1 or world % sp:
+        raise ValueError(
+            f"mesh.model_parallelism={sp} must divide the number of ranks "
+            f"({world}): each sp group is model_parallelism ranks")
+    rank = process_index()
+    if sp == 1:
+        return Mesh(dp=world, dp_index=rank)
+    bands = None
+    for d in range(world // sp):
+        ranks = list(range(d * sp, (d + 1) * sp))
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            bands = Bands(group=group, index=rank - d * sp, size=sp)
+    return Mesh(dp=world // sp, dp_index=rank // sp, bands=bands)
+
+
+def shard_batch_spatial(mesh: Mesh, batch: dict) -> dict:
+    """This rank's band of a host batch (``tpuseg``'s
+    ``shard_batch_spatial``): rows ``[i * H / sp, (i + 1) * H / sp)`` of
+    the NHWC image and the NHW[C] label; the batch itself when sp is 1."""
+    if mesh.bands is None:
+        return batch
+    out = dict(batch)
+    for key in ("image", "label"):
+        a = batch[key]
+        h = a.shape[1] // mesh.sp
+        if h * mesh.sp != a.shape[1]:
+            raise ValueError(f"{key} height {a.shape[1]} does not split "
+                             f"into {mesh.sp} equal bands")
+        out[key] = a[:, mesh.sp_index * h:(mesh.sp_index + 1) * h]
+    return out

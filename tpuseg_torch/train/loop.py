@@ -30,8 +30,14 @@ Label relaxation (``loss.loss_type=relaxed`` with
 ``loss.reduce_border_epoch`` the criterion runs with ``invert_border`` and
 the train set's label transform becomes the ``reduce_border`` one.
 
-Not ported, and raising: ``mesh.model_parallelism > 1`` (dp x sp spatial
-sharding, ROADMAP Queue 1 item 5).
+dp x sp (``mesh.model_parallelism = sp > 1``, ``parallel/mesh.py``): the
+ranks form a (dp, sp) grid of ``sp`` consecutive ranks a group; the ranks
+of a group load the same images (the train data is sharded over the dp
+groups) and each trains on its band of every image's rows
+(``shard_batch_spatial``, ``spatial.sharded``); DDP still averages over
+every rank. ``check_spatial`` refuses what uniform bands cannot hold.
+Validation stays whole-image, the val split sharded over every rank, as
+``tpuseg`` validates host-locally.
 """
 from __future__ import annotations
 
@@ -57,10 +63,13 @@ from tpuseg_torch.losses import get_loss, get_val_loss
 from tpuseg_torch.models import get_model
 from tpuseg_torch.parallel import (
     any_rank,
+    make_mesh,
     multihost_sum,
     per_rank,
     process_count,
     process_index,
+    shard_batch_spatial,
+    spatial,
     sync_hosts,
 )
 from tpuseg_torch.train.checkpoint import (
@@ -81,6 +90,44 @@ def resolve_device(device: str) -> torch.device:
             f"device {device!r} requested but torch.cuda.is_available() is "
             f"False; pass --device cpu to run on the CPU")
     return dev
+
+
+# the archs whose every op runs on bands (the HRNet trunk, the OCR block,
+# the scale-attention head and the two-scale fusion); the other trunks and
+# heads have global pools and max pools that spatial sharding leaves out
+SPATIAL_ARCHS = ("ocrnet.HRNet", "ocrnet.HRNet_Mscale",
+                 "ocrnet.HRNet_Mscale_Tiny")
+
+
+def check_spatial(cfg: Config, world: int) -> None:
+    """Refuse a dp x sp run (``mesh.model_parallelism = sp > 1``) that
+    uniform bands cannot hold: every feature map of both train scales
+    must split into ``sp`` equal bands (the 0.5x pass's stride-32 maps have
+    ``crop_h / 64`` rows), the arch must be one whose ops run on bands, and
+    the ranks must form whole sp groups. ``tpuseg``'s own guard is for an
+    XLA gradient bug (``tpuseg/train/loop.py:64-86``) the port does not
+    have."""
+    sp = cfg.mesh.model_parallelism
+    if sp == 1:
+        return
+    crop = tuple(int(c) for c in cfg.dataset.crop_size)
+    lo = cfg.model.mscale_lo_scale if infer_mscale(cfg) else 1.0
+    unit = int(round(32 / lo)) * sp
+    if crop[0] % unit:
+        raise ValueError(
+            f"dataset.crop_size {crop} cannot be split into "
+            f"mesh.model_parallelism={sp} equal bands: the {lo}x pass's "
+            f"stride-32 feature maps have {crop[0] * lo / 32:g} rows, so the "
+            f"crop height must be a multiple of {unit}")
+    if cfg.model.arch not in SPATIAL_ARCHS:
+        raise NotImplementedError(
+            f"mesh.model_parallelism={sp}: spatial sharding runs "
+            f"{', '.join(SPATIAL_ARCHS)}, not {cfg.model.arch}")
+    if world % sp:
+        raise ValueError(
+            f"mesh.model_parallelism={sp} must divide the number of ranks "
+            f"({world}): start the ranks with torch.distributed.run and "
+            f"--multi-host")
 
 
 def _reduce_scale_hists(scale_hists: dict, runner: EvalRunner,
@@ -104,10 +151,7 @@ class Trainer:
 
     def __init__(self, cfg: Config, logdir: str = "logs",
                  device: str = "cuda", is_primary: bool = True):
-        if cfg.mesh.model_parallelism > 1:
-            raise NotImplementedError(
-                "mesh.model_parallelism > 1 (spatial sharding) is not "
-                "ported to tpuseg_torch (ROADMAP.md Queue 1 item 5)")
+        check_spatial(cfg, process_count())
         self.cfg = cfg
         self.logdir = logdir
         self.device = resolve_device(device)
@@ -123,11 +167,14 @@ class Trainer:
         n_params = sum(p.numel() for p in model.parameters())
         self.logger.msg(f"params: {n_params / 1e6:.2f}M on {self.device}")
 
-        # this rank's shard of the global batch (reference
-        # DistributedSampler semantics: datasets/sampler.py:43-110)
+        # the (dp, sp) grid; this dp group's shard of the global batch
+        # (reference DistributedSampler semantics: datasets/sampler.py:
+        # 43-110), the val split sharded over every rank
+        self.mesh = make_mesh(cfg.mesh.model_parallelism)
         self.train_loader, self.val_loader, self.train_set = setup_data(
             cfg, eval_mode=None, seed=cfg.train.seed,
-            num_shards=process_count(), shard=process_index(),
+            num_shards=self.mesh.dp, shard=self.mesh.dp_index,
+            val_shards=process_count(), val_shard=process_index(),
             is_primary=is_primary)
         self.steps_per_epoch = max(1, len(self.train_loader))
         if cfg.train.test_mode:
@@ -136,8 +183,9 @@ class Trainer:
             cfg, self.model.parameters(), self.steps_per_epoch)
         self.step = 0
         # dropout masks come from the device's default generator, seeded
-        # per rank (tpuseg draws them from one key over the global batch)
-        torch.manual_seed(cfg.train.seed + 1 + process_index())
+        # per dp group, so the bands of one image draw the same channel
+        # masks (tpuseg draws them from one key over the global batch)
+        torch.manual_seed(cfg.train.seed + 1 + self.mesh.dp_index)
 
         self.ckpt = CheckpointManager(
             os.path.join(logdir, cfg.train.checkpoint_dir),
@@ -159,6 +207,10 @@ class Trainer:
                 f"DistributedDataParallel: {process_count()} ranks, backend "
                 f"{torch.distributed.get_backend()}, rank "
                 f"{process_index()} on {self.device}")
+        if self.mesh.bands is not None:
+            self.logger.msg(
+                f"mesh: dp {self.mesh.dp} x sp {self.mesh.sp}, each rank "
+                f"training on 1/{self.mesh.sp} of every image's rows")
 
         self.train_step = self._make_train_step(invert_border=False)
         self.eval_runner = EvalRunner(
@@ -268,10 +320,15 @@ class Trainer:
             data_s += time.perf_counter() - t_wait
             if i == 0:  # the loader's start
                 first_wait = data_s
-            device_batch = {"image": self._upload(batch["image"]),
-                            "label": self._upload(batch["label"])}
-            metrics = train_step(self.net, self.optimizer, device_batch,
-                                 self.step)
+            if i == 1:
+                spatial.reset_counts()
+            band = shard_batch_spatial(self.mesh, batch)
+            device_batch = {"image": self._upload(band["image"]),
+                            "label": self._upload(band["label"])}
+            # on bands through the backward too (remat recomputes there)
+            with spatial.sharded(self.mesh.bands):
+                metrics = train_step(self.net, self.optimizer, device_batch,
+                                     self.step)
             self.step += 1
             loss_sum = metrics["loss"] if loss_sum is None \
                 else loss_sum + metrics["loss"]
@@ -288,8 +345,8 @@ class Trainer:
                 loss = _rank_mean(float(metrics["loss"]))
                 avg = _rank_mean(float(loss_sum)) / n_done
                 lr = float(self.schedule(self.step))
-                # batch rows are this rank's shard: the global rate
-                imgs_s = (n_done * batch["image"].shape[0] * process_count()
+                # batch rows are this dp group's shard: the global rate
+                imgs_s = (n_done * batch["image"].shape[0] * self.mesh.dp
                           / max(time.perf_counter() - t_start, 1e-6))
                 self.logger.msg(
                     f"epoch {epoch} it {i + 1}/{self.steps_per_epoch} "
@@ -320,7 +377,7 @@ class Trainer:
         if n_done > 1 and t_first is not None:
             dt = time.perf_counter() - t_first
             rate = (f"steps 2-{n_done}: {dt / (n_done - 1):.4f} s/step, "
-                    f"{(n_done - 1) * batch_size * process_count() / dt:.4f}"
+                    f"{(n_done - 1) * batch_size * self.mesh.dp / dt:.4f}"
                     f" img/s; ")
         later = (data_s - first_wait) / max(n_done - 1, 1) * 1e3
         if n_done > 1:
@@ -329,6 +386,13 @@ class Trainer:
         self.logger.msg(f"epoch {epoch}: {n_done} steps on {self.device}, "
                         f"{rate}host data wait {wait:.1f} ms/step{steady}, "
                         f"mean loss {mean_loss:.4f}")
+        if self.mesh.bands is not None and n_done > 1:
+            steps = n_done - 1
+            self.logger.msg(
+                f"epoch {epoch}: sp collectives a step (steps 2-{n_done}): "
+                + ", ".join(f"{spatial.COUNTS[k] / steps:g} {k} "
+                            f"{spatial.SECONDS[k] / steps:.4f} s"
+                            for k in spatial.COUNTS) + " of host time")
         if process_count() > 1:
             waits = " ".join(f"{w:.1f}" for w in per_rank(wait))
             laters = " ".join(f"{w:.1f}" for w in per_rank(later))

@@ -14,13 +14,15 @@ import torch
 
 from tpuseg_torch.ops import device_label, device_normalize, resize_bilinear
 from tpuseg_torch.ops.normalize import IMAGENET_MEAN, IMAGENET_STD
+from tpuseg_torch.parallel import spatial
 from tpuseg_torch.train.optim import set_lr
 
 
 def _scale_as_nhwc(x: torch.Tensor, y: torch.Tensor, align_corners: bool
                    ) -> torch.Tensor:
     """Resize NHWC ``x`` to the spatial size of NHWC ``y``."""
-    out = resize_bilinear(x.permute(0, 3, 1, 2), y.shape[1:3], align_corners)
+    size = spatial.global_height(y, dim=1), y.shape[2]
+    out = resize_bilinear(x.permute(0, 3, 1, 2), size, align_corners)
     return out.permute(0, 2, 3, 1)
 
 
