@@ -733,9 +733,15 @@ def _conditioned_model(root: str):
     return model, path
 
 
+TOPN_HW = (512, 1024)  # [dump]'s top-N scene: the top left of val scene 0
+
+
 def _topn_tree(root: str) -> str:
-    """A Cityscapes tree beside ``root`` holding one of its val scenes (top-N
-    dumps every (image, class) pair it selects: 19 a selected image)."""
+    """A Cityscapes tree beside ``root`` holding the TOPN_HW top left of its
+    first val scene (top-N dumps every (image, class) pair it selects: 19
+    PNG galleries a selected image, so its pixels set the mode's time)."""
+    from PIL import Image
+
     top = Path(root, "topn_tree")
     lv = "leftImg8bit_trainvaltest/leftImg8bit"
     gt = "gtFine_trainvaltest/gtFine"
@@ -745,7 +751,9 @@ def _topn_tree(root: str) -> str:
                       (gt, f"{base}_gtFine_labelIds.png")):
         d = top / sub / "val" / "lindau"
         d.mkdir(parents=True)
-        (d / name).symlink_to(Path(root, sub, "val", "lindau", name))
+        whole = np.asarray(Image.open(Path(root, sub, "val", "lindau", name)))
+        Image.fromarray(whole[:TOPN_HW[0], :TOPN_HW[1]]).save(
+            d / name, compress_level=1)
     return str(top)
 
 
@@ -797,15 +805,18 @@ def _png(path) -> np.ndarray:
     return np.asarray(Image.open(path))
 
 
+DUMP_IMAGES = 2  # [dump]: val scenes of the first three modes
+
+
 def phase_dump(card_info: str, root: str, model, ckpt: str) -> dict:
     """``python -m tpuseg_torch.cli dump --config dump_cityscapes.yaml`` on
-    the conditioned W48 weights with both kernels on over the seeded
-    Cityscapes tree, in four modes: assets, auto-labelling, submission,
-    and top-N (over one val scene). Held: the launch counts, each mode's
-    file set, every dumped prediction equal to the argmax of EvalRunner's
-    logits for the same image, and the auto-label PNGs read back as the
-    same trainIds through cityscapes_labels. Returns the launches of the
-    four runs together."""
+    the conditioned W48 weights with both kernels on over DUMP_IMAGES val
+    scenes of the seeded Cityscapes tree, in four modes: assets,
+    auto-labelling, submission, and top-N (over one val scene). Held: the
+    launch counts, each mode's file set, every dumped prediction equal to
+    the argmax of EvalRunner's logits for the same image, and the
+    auto-label PNGs read back as the same trainIds through
+    cityscapes_labels. Returns the launches of the four runs together."""
     from tpuseg_torch.data.cityscapes_labels import (
         PALETTE,
         TRAINID_TO_ID,
@@ -813,7 +824,8 @@ def phase_dump(card_info: str, root: str, model, ckpt: str) -> dict:
         trainid2name,
     )
 
-    common = [f"dataset.cityscapes_dir={root}", "train.test_mode=true",
+    common = [f"dataset.cityscapes_dir={_subset_tree(root, 1, DUMP_IMAGES)}",
+              "train.test_mode=true",
               "model.use_pallas=true", "model.fused_stage1=true",
               f"dataset.centroid_root={Path(root, 'centroids')}"]
     want = _reference_predictions(model, common)
@@ -833,11 +845,11 @@ def phase_dump(card_info: str, root: str, model, ckpt: str) -> dict:
               len(names)),
              ("submission", ["eval.dump_for_submission=true"], len(names)),
              ("topn", ["eval.dump_topn=2"], 2))
+    topn = [f"dataset.cityscapes_dir={_topn_tree(root)}"] + common[1:]
+    want_topn = _reference_predictions(model, topn)
     total = {"ocr_attention": 0, "bottleneck_fused": 0}
     for mode, extra, forwards in modes:
-        sets = common + extra
-        if mode == "topn":
-            sets[0] = f"dataset.cityscapes_dir={_topn_tree(root)}"
+        sets = (topn if mode == "topn" else common) + extra
         logdir = Path(root, f"dump_{mode}")
         argv = ["dump", "--config", DUMP_RECIPE, "--checkpoint", ckpt,
                 "--logdir", str(logdir)]
@@ -879,8 +891,8 @@ def phase_dump(card_info: str, root: str, model, ckpt: str) -> dict:
             expect = {f"best_images/{p}_{a}.png" for p in pairs
                       for a in assets}
             expect.add("best_images/topn_failures.html")
-            checks = {f"best_images/{p}_prediction.png": PALETTE[want[n]]
-                      for p in pairs}
+            checks = {f"best_images/{p}_prediction.png":
+                      PALETTE[want_topn[n]] for p in pairs}
         if files != expect:
             raise AssertionError(
                 f"[dump] {mode}: files {sorted(files ^ expect)[:8]} differ "
@@ -905,19 +917,20 @@ def phase_dump(card_info: str, root: str, model, ckpt: str) -> dict:
 def phase_serve(card_info: str, root: str, model, ckpt: str) -> dict:
     """``python -m tpuseg_torch.cli export --export-size 1024x2048`` of the
     conditioned W48 3-scale bf16 model with both kernels on; the bundle
-    loaded in process (``load_exported``) and served over HTTP
-    (``make_http_server`` on an ephemeral port). Held: both ops in the
-    graph, 3 and 9 launches a served call, the logits against the eager
+    loaded in process (``load_exported``), once, and that program served
+    over HTTP as well (``make_http_server(serve=...)`` on an ephemeral
+    port: the server's own load of a bundle is held on the CPU, in
+    tests/test_torch_serving.py). Held: both ops in the graph, 3 and 9 launches a served call, the logits against the eager
     forward of the same module (SERVE_TOL), the HTTP response byte-equal to
     the in-process call, /healthz the manifest. Returns the launches of
     one served call."""
     import threading
     import urllib.request
 
+    from tpuseg_torch import serving
     from tpuseg_torch.kernels import bottleneck_fused as bk
     from tpuseg_torch.kernels import ocr_attention as ak
     from tpuseg_torch.ops import device_normalize
-    from tpuseg_torch.serving import load_exported, make_http_server
 
     bundle = Path(root, "bundle")
     argv = ["export", "--config", RECIPE, "--checkpoint", ckpt,
@@ -927,7 +940,13 @@ def phase_serve(card_info: str, root: str, model, ckpt: str) -> dict:
     _, export_s, _ = _run_cli(argv)
     manifest = json.loads((bundle / "manifest.json").read_text())
     (entry,) = manifest["entries"]
-    program = torch.export.load(str(bundle / entry["file"]))
+    # the bundle is loaded once (each load of the 0.3 GB program takes
+    # 11-20 s on the host): the program load_exported reads is the one
+    # inspected here and the one the HTTP server below serves
+    t0 = time.perf_counter()
+    serve = serving.load_exported(str(bundle))
+    load_s = time.perf_counter() - t0
+    (program,) = serve.programs
     ops = [str(n.target) for n in program.graph.nodes
            if str(n.target).startswith("tpuseg_torch.")]
     counts = {k: ops.count(f"tpuseg_torch.{k}.default")
@@ -943,9 +962,6 @@ def phase_serve(card_info: str, root: str, model, ckpt: str) -> dict:
     if counts != {"ocr_attention": 3, "bottleneck_fused": 9}:
         raise AssertionError(f"[serve] graph ops {counts}")
 
-    t0 = time.perf_counter()
-    serve = load_exported(str(bundle))
-    load_s = time.perf_counter() - t0
     image, _, _ = _fake_scene(1001)
     x32 = device_normalize(torch.from_numpy(image[None]).cuda())
     x = x32.to(torch.bfloat16)
@@ -986,7 +1002,8 @@ def phase_serve(card_info: str, root: str, model, ckpt: str) -> dict:
              what="one eager forward of the same module",
              out_name="eager_profile_top.txt", tag="serve-profile")
 
-    srv = make_http_server(str(bundle), host="127.0.0.1", port=0)
+    srv = serving.make_http_server(str(bundle), host="127.0.0.1", port=0,
+                                   serve=serve)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
     try:
@@ -1049,6 +1066,10 @@ TRAIN_RECIPE = "tpuseg_torch/cli/recipes/train_cityscapes.yaml"
 # test_mode: 10 steps an epoch, 5 val images; 40 train images give
 # class-uniform sampling at 0.5 one centroid crop a class an epoch
 TRAIN_IMAGES, VAL_IMAGES = 40, 5
+# [train], [deepv3-train], [mscale-train] and [loader]'s CLI run: steps an
+# epoch, over as many train scenes; val scenes a validation ([relaxed] too)
+TRAIN_STEPS = 5
+TRAIN_VAL_IMAGES = 2
 SCENE_HW, BLOCK = (1024, 2048), 128
 REMAT_STEPS = 3
 # [train-parity], tiny topology in f32: cuda vs cpu, and remat on vs off
@@ -1106,8 +1127,10 @@ def _write_scene(root: str, split: str, city: str, i: int) -> None:
 def _condition(model, seed: int = 0) -> None:
     """Seeded weights that keep a tiny train-mode net well conditioned
     (convs at 1/sqrt(fan_in), random BN affine and running statistics), so
-    its gradients are not dominated by f32 rounding."""
-    gen = torch.Generator().manual_seed(seed)
+    its gradients are not dominated by f32 rounding. Drawn on the model's
+    device."""
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, torch.nn.Conv2d):
@@ -1120,7 +1143,7 @@ def _condition(model, seed: int = 0) -> None:
                 m.bias.normal_(0.0, 0.1, generator=gen)
                 m.running_mean.normal_(0.0, 0.1, generator=gen)
                 m.running_var.copy_(0.7 + 0.3 * torch.randn(
-                    m.running_var.shape, generator=gen).abs())
+                    m.running_var.shape, generator=gen, device=dev).abs())
 
 
 def _stats(model) -> dict:
@@ -1358,8 +1381,9 @@ def phase_train(card_info: str, root: str) -> dict:
     """``train_cityscapes.yaml`` at full width (W48 HRNet_Mscale, two-scale
     1024x2048 fwd+bwd in bf16, RMI + aux + mscale CE, SGD + poly, remat of
     stages 1-3, the uint8 wire) through the CLI's code, bs 1, two epochs of
-    10 steps over a seeded Cityscapes tree, each epoch validated over 5
-    images at three scales with both kernels on. Held: finite losses,
+    TRAIN_STEPS steps over as many train scenes of the seeded Cityscapes
+    tree, each epoch validated over TRAIN_VAL_IMAGES images at three scales
+    with both kernels on. Held: finite losses,
     weights moved, the checkpoint read back, every packed bottleneck block
     fresh after the optimizer steps, each kernel vs its plain version at
     the trained model's inputs, the launch counts. Returns each kernel's
@@ -1377,11 +1401,12 @@ def phase_train(card_info: str, root: str) -> dict:
     out_dir.mkdir(parents=True, exist_ok=True)
     # checkpoints (~0.6 GB each at W48) stay out of chiprun_out
     logdir = str(Path(root, "logs"))
+    sub = _subset_tree(root, TRAIN_STEPS, TRAIN_VAL_IMAGES)
     sets = ["train.batch_size=1", "train.test_mode=true",
             "train.log_every=1", "model.use_pallas=true",
             "model.fused_stage1=true",
-            f"dataset.cityscapes_dir={root}",
-            f"dataset.centroid_root={Path(root, 'centroids')}"]
+            f"dataset.cityscapes_dir={sub}",
+            f"dataset.centroid_root={Path(sub, 'centroids')}"]
     argv = ["train", "--config", TRAIN_RECIPE, "--logdir", logdir]
     for item in sets:
         argv += ["--set", item]
@@ -1417,7 +1442,8 @@ def phase_train(card_info: str, root: str) -> dict:
     losses = [x["loss"] for x in lines if x["phase"] == "train"]
     log(f"[train] loss at steps 1..{len(losses)}: "
         + " ".join(f"{v:.4f}" for v in losses))
-    if len(losses) != 20 or not all(math.isfinite(v) for v in losses):
+    if len(losses) != 2 * TRAIN_STEPS or not all(
+            math.isfinite(v) for v in losses):
         raise AssertionError(f"train losses {losses}")
     _log_rates("train", text, f"W48 two-scale 1024x2048 bf16, bs 1, remat "
                f"1-3, 3 scales and kernels on in validation, {card_info}")
@@ -1446,32 +1472,32 @@ def phase_train(card_info: str, root: str) -> dict:
     same = all(torch.equal(saved[k], v) for k, v in trained.items())
     log(f"[train] checkpoint step {step} restored, equal to the "
         f"trained module: {same}")
-    if step != 20 or not same:
+    if step != 2 * TRAIN_STEPS or not same:
         raise AssertionError(f"checkpoint step {step}, equal {same}")
 
-    # the packed-weight cache after 10 optimizer steps: every block
+    # the packed-weight cache after the optimizer steps: every block
     # the kernel was given vs a fresh fold + pack of that moment
     log(f"[train] packed bottleneck weights checked against a fresh "
         f"fold + pack at every launch of the validations: "
         f"{stale['launches']} launches, {stale['stale']} stale")
-    if stale["stale"] or stale["launches"] != 9 * 2 * VAL_IMAGES:
+    if stale["stale"] or stale["launches"] != 9 * 2 * TRAIN_VAL_IMAGES:
         raise AssertionError(f"stale packed weights: {stale}")
 
     # held: each kernel vs its plain version at the inputs the trained
     # model gives it. Printed: the last validation's argmax (kernels
-    # on) vs the same weights with kernels off. 20 steps leave a net of
+    # on) vs the same weights with kernels off. The steps leave a net of
     # so high a gain that the fused block's f32 folded-BN math and the
     # unfused block's bf16 conv -> BN passes flip some argmaxes; the
     # spread between runs is in PERF.md
     _, val_loader, _ = setup_data(cfg, eval_mode="val",
                                   seed=cfg.train.seed)
-    batches = [b for _, b in zip(range(VAL_IMAGES), val_loader)]
-    on = recorded[-VAL_IMAGES:]
+    batches = [b for _, b in zip(range(TRAIN_VAL_IMAGES), val_loader)]
+    on = recorded[-TRAIN_VAL_IMAGES:]
     model.eval()
     _set_kernels(model, False)
     for batch in batches:
         runner.run_batch(batch, need_assets=False, acc=runner.init_acc())
-    off = recorded[-VAL_IMAGES:]
+    off = recorded[-TRAIN_VAL_IMAGES:]
     _kernels_at_trained_inputs(model, device_normalize(
         torch.from_numpy(batches[0]["image"]).cuda()))
     model.train()
@@ -1480,11 +1506,11 @@ def phase_train(card_info: str, root: str) -> dict:
     std = float(torch.stack([b[2] for b in off]).mean())
     log(f"[train] the last validation (kernels on) vs the same weights "
         f"with kernels off: argmax agreement {agree:.5f} over "
-        f"{VAL_IMAGES} images (not held; logit std {std:.1f})")
+        f"{TRAIN_VAL_IMAGES} images (not held; logit std {std:.1f})")
 
     # the validations launched both kernels on every image
-    want = {"ocr_attention": 3 * 2 * VAL_IMAGES,
-            "bottleneck_fused": 9 * 2 * VAL_IMAGES}
+    want = {"ocr_attention": 3 * 2 * TRAIN_VAL_IMAGES,
+            "bottleneck_fused": 9 * 2 * TRAIN_VAL_IMAGES}
     log(f"[train] validation launches {launches} (want {want}: 3 attention "
         f"and 9 bottleneck calls an image, 2 validations)")
     if launches != want:
@@ -1550,9 +1576,13 @@ def phase_train_remat(card_info: str) -> None:
 # ------------------------------------------------- the ASPP-headed zoo
 
 DEEPV3_RECIPE = "tpuseg_torch/cli/recipes/train_cityscapes_deepv3.yaml"
-ZOO_HW = (256, 512)  # [zoo-parity]: card vs CPU, f32, TF32 off
+ZOO_HW = (128, 256)  # [zoo-parity]: card vs CPU, f32, TF32 off
 ZOO_PARITY_TOL = 1e-4  # logits, L1-relative
 ZOO_EVAL_CALLS = 2  # [zoo-eval]: forwards an arch; 2..N are timed
+# factories that build the network of another ([zoo-parity] holds their
+# weights equal): [zoo-eval] times that one
+ZOO_SAME_NET = {"deepv3.DeepV3PlusW38I": "deepv3.DeepV3PlusW38",
+                "deepv3.DeepWV3Plus": "deepv3.DeepV3PlusW38"}
 RELAXED_TRAIN_IMAGES = 5  # [relaxed]: 5 steps an epoch at batch 1
 RELAXED_TOL = 1e-5  # relaxed_soft_nll card vs CPU, value and gradient
 
@@ -1570,13 +1600,17 @@ def _zoo_archs(parity: bool = False) -> list:
 
 def _zoo_model(arch: str, evaluate: bool = False, **sets):
     """``arch`` at full width from get_model, with ``_condition``'s seeded
-    weights, on the CPU in eval mode; ``evaluate``: as the eval entry
-    points build it (the mscale archs' n-scale fusion over eval.scales)."""
+    weights, in eval mode: on the CPU, or for ``evaluate`` on the card
+    (its generator is seconds faster for the wide nets) as the eval entry
+    points build it (the mscale archs' n-scale fusion over
+    eval.scales)."""
     from tpuseg_torch.config import eval_model_config, make_config
     from tpuseg_torch.models import get_model
 
     cfg = make_config({"model.arch": arch, **sets})
     model = get_model(eval_model_config(cfg) if evaluate else cfg)
+    if evaluate:
+        model = model.cuda()
     _condition(model, seed=0)
     return model.eval()
 
@@ -1678,9 +1712,10 @@ def _conv_algorithms(card_info: str) -> None:
 
 def phase_zoo_eval(card_info: str) -> None:
     """Every factory of the slice at full width, bf16, eval, on one seeded
-    uint8 1024x2048 image normalized on the card: ms a forward over calls
-    2..N, peak device memory and parameter count printed; finite logits
-    of the image's shape held."""
+    uint8 1024x2048 image normalized on the card (one of the factories
+    that build one network, ZOO_SAME_NET): ms a forward over calls 2..N,
+    peak device memory and parameter count printed; finite logits of the
+    image's shape held."""
     from tpuseg_torch.ops import device_normalize
 
     _conv_algorithms(card_info)
@@ -1688,9 +1723,13 @@ def phase_zoo_eval(card_info: str) -> None:
     x = device_normalize(torch.from_numpy(image[None]).cuda())
     bad = []
     for arch in _zoo_archs():
+        if arch in ZOO_SAME_NET:
+            log(f"[zoo-eval] {arch}: the network of {ZOO_SAME_NET[arch]}, "
+                f"timed there")
+            continue
         model = _zoo_model(arch, evaluate=True)
         n_params = sum(p.numel() for p in model.parameters())
-        model = model.cuda().to(memory_format=torch.channels_last)
+        model = model.to(memory_format=torch.channels_last)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         times = []
@@ -1882,8 +1921,9 @@ def _log_rates(tag: str, text: str, what: str) -> None:
 def phase_deepv3_train(card_info: str, root: str) -> None:
     """``train_cityscapes_deepv3.yaml`` (DeepV3PlusW38 at full width, 800x800
     crops, bf16, plain CE, SGD + poly 2, the WRN38 blocks remat'd, the
-    uint8 wire) through the CLI's code, bs 1, two epochs of 10 steps over
-    the seeded Cityscapes tree, each validated over 5 images at 1024x2048.
+    uint8 wire) through the CLI's code, bs 1, two epochs of TRAIN_STEPS
+    steps over as many seeded Cityscapes train scenes, each validated over
+    TRAIN_VAL_IMAGES images at 1024x2048.
     Held: finite losses, parameters and BN statistics moved, the checkpoint
     written, equal to the trained module and resumed by a second run, and
     each validation's confusion matrix counting every labelled pixel."""
@@ -1896,9 +1936,10 @@ def phase_deepv3_train(card_info: str, root: str) -> None:
     out_dir = Path("chiprun_out/deepv3_train")
     out_dir.mkdir(parents=True, exist_ok=True)
     logdir = str(Path(root, "deepv3_logs"))  # checkpoints stay out
+    sub = _subset_tree(root, TRAIN_STEPS, TRAIN_VAL_IMAGES)
     sets = ["train.batch_size=1", "train.test_mode=true",
-            "train.log_every=1", f"dataset.cityscapes_dir={root}",
-            f"dataset.centroid_root={Path(root, 'centroids')}"]
+            "train.log_every=1", f"dataset.cityscapes_dir={sub}",
+            f"dataset.centroid_root={Path(sub, 'centroids')}"]
     recorded, sums = [], []
     undo, undo_drain = _spy_validation(recorded), _spy_drains(sums)
     torch.cuda.empty_cache()
@@ -1912,8 +1953,9 @@ def phase_deepv3_train(card_info: str, root: str) -> None:
     for name in ("log.txt", "metrics.jsonl"):
         shutil.copy(Path(logdir, name), out_dir / name)
     cfg = load_config(DEEPV3_RECIPE, sets)
-    losses = _train_losses(logdir, 20)
-    log(f"[deepv3-train] loss at steps 1..20: "
+    steps = 2 * TRAIN_STEPS
+    losses = _train_losses(logdir, steps)
+    log(f"[deepv3-train] loss at steps 1..{steps}: "
         + " ".join(f"{v:.4f}" for v in losses))
     what = (f"DeepV3PlusW38 800x800 bf16, bs 1, WRN38 blocks remat'd, "
             f"{card_info}")
@@ -1924,7 +1966,7 @@ def phase_deepv3_train(card_info: str, root: str) -> None:
     # every labelled val pixel counted, once a validation
     _, val_loader, _ = setup_data(cfg, eval_mode="val", seed=cfg.train.seed)
     labelled = sum(int((np.asarray(b["label"]) != 255).sum())
-                   for _, b in zip(range(VAL_IMAGES), val_loader))
+                   for b in val_loader)
     log(f"[deepv3-train] validation confusion matrices count {sums} pixels "
         f"(want {labelled} labelled pixels each)")
     if sums != [labelled, labelled]:
@@ -1954,7 +1996,7 @@ def phase_deepv3_train(card_info: str, root: str) -> None:
     resumed = "resumed at epoch 2" in text
     log(f"[deepv3-train] checkpoint step {step}, equal to the trained "
         f"module: {same}; a second run resumed from it: {resumed}")
-    if step != 20 or not same or not resumed:
+    if step != steps or not same or not resumed:
         raise AssertionError(f"checkpoint step {step}, equal {same}, "
                              f"resumed {resumed}")
     torch.cuda.empty_cache()
@@ -1962,9 +2004,11 @@ def phase_deepv3_train(card_info: str, root: str) -> None:
 
 def _subset_tree(root: str, n_train: int, n_val: int = VAL_IMAGES) -> str:
     """A Cityscapes tree beside ``root`` with its first ``n_train`` train
-    scenes and first ``n_val`` val scenes (symlinks)."""
+    scenes and first ``n_val`` val scenes (symlinks), made once."""
     sub = Path(root, f"subset_{n_train}" + (
         f"_{n_val}" if n_val != VAL_IMAGES else ""))
+    if sub.exists():
+        return str(sub)
     for part in ("leftImg8bit_trainvaltest/leftImg8bit",
                  "gtFine_trainvaltest/gtFine"):
         for split, city, n in (("train", "aachen", n_train),
@@ -2012,7 +2056,7 @@ def phase_relaxed(card_info: str, root: str) -> None:
         if not (v_rel <= RELAXED_TOL and g_rel <= RELAXED_TOL):
             raise AssertionError(f"[relaxed] card vs CPU: {v_rel}, {g_rel}")
 
-    tree = _subset_tree(root, RELAXED_TRAIN_IMAGES)
+    tree = _subset_tree(root, RELAXED_TRAIN_IMAGES, TRAIN_VAL_IMAGES)
     logdir = str(Path(root, "relaxed_logs"))
     sets = ["train.batch_size=1", "train.test_mode=true",
             "train.log_every=1", "loss.loss_type=relaxed",
@@ -2064,8 +2108,7 @@ FAMILY_PARITY = ("mscale.DeepV3W38Fuse2", "mscale.DeeperX71",
 MAPILLARY_RECIPE = "tpuseg_torch/cli/recipes/eval_mapillary.yaml"
 MAPILLARY_TRAIN_RECIPE = "tpuseg_torch/cli/recipes/train_mapillary.yaml"
 # ragged Mapillary scenes, long side 2048-2304: pre_size 2177 resizes each
-MAPILLARY_VAL_HW = ((1536, 2048), (1728, 2304), (1600, 2176), (1536, 2304),
-                    (1700, 2240))
+MAPILLARY_VAL_HW = ((1536, 2048), (1728, 2304), (1600, 2176))
 MAPILLARY_TRAIN_HW = ((1536, 2048), (1728, 2304), (1632, 2176),
                       (1536, 2240), (1664, 2208))
 
@@ -2190,10 +2233,11 @@ def phase_mscale_eval(card_info: str, root: str) -> dict:
 def phase_mscale_train(card_info: str, root: str) -> None:
     """``train_cityscapes_deepv3.yaml`` with ``model.arch=mscale.DeepV3W38``
     (MscaleV3Plus on WRN38: two-scale fwd+bwd at 800x800, bf16, the WRN38
-    blocks remat'd) through the CLI's code, bs 1, two epochs of 10 steps
-    over the seeded Cityscapes tree, each validated over 5 images at
-    1024x2048 with n-scale fusion. Held: finite losses, every
-    ``scale_attn`` parameter moved, each validation's matrix counting every
+    blocks remat'd) through the CLI's code, bs 1, two epochs of TRAIN_STEPS
+    steps over as many seeded Cityscapes train scenes, the second
+    validated over TRAIN_VAL_IMAGES images at 1024x2048 with n-scale
+    fusion. Held: finite losses, every
+    ``scale_attn`` parameter moved, the validation's matrix counting every
     labelled pixel. Printed: s/step, host data wait, peak memory."""
     from tpuseg_torch.cli.main import load_config
     from tpuseg_torch.config import eval_model_config
@@ -2203,10 +2247,11 @@ def phase_mscale_train(card_info: str, root: str) -> None:
     out_dir = Path("chiprun_out/mscale_train")
     out_dir.mkdir(parents=True, exist_ok=True)
     logdir = str(Path(root, "mscale_logs"))  # checkpoints stay out
+    sub = _subset_tree(root, TRAIN_STEPS, TRAIN_VAL_IMAGES)
     sets = ["model.arch=mscale.DeepV3W38", "train.batch_size=1",
-            "train.test_mode=true", "train.log_every=1",
-            f"dataset.cityscapes_dir={root}",
-            f"dataset.centroid_root={Path(root, 'centroids')}"]
+            "train.test_mode=true", "train.log_every=1", "train.val_freq=2",
+            f"dataset.cityscapes_dir={sub}",
+            f"dataset.centroid_root={Path(sub, 'centroids')}"]
     recorded, sums = [], []
     undo, undo_drain = _spy_validation(recorded), _spy_drains(sums)
     torch.cuda.empty_cache()
@@ -2220,8 +2265,8 @@ def phase_mscale_train(card_info: str, root: str) -> None:
     for name in ("log.txt", "metrics.jsonl"):
         shutil.copy(Path(logdir, name), out_dir / name)
     cfg = load_config(DEEPV3_RECIPE, sets)
-    losses = _train_losses(logdir, 20)
-    log(f"[mscale-train] loss at steps 1..20: "
+    losses = _train_losses(logdir, 2 * TRAIN_STEPS)
+    log(f"[mscale-train] loss at steps 1..{2 * TRAIN_STEPS}: "
         + " ".join(f"{v:.4f}" for v in losses))
     _log_rates("mscale-train", text, f"mscale.DeepV3W38 two-scale 800x800 "
                f"bf16, bs 1, WRN38 blocks remat'd, {card_info}")
@@ -2229,10 +2274,10 @@ def phase_mscale_train(card_info: str, root: str) -> None:
         f"{mem:.2f} GiB, on {card_info}")
     _, val_loader, _ = setup_data(cfg, eval_mode="val", seed=cfg.train.seed)
     labelled = sum(int((np.asarray(b["label"]) != 255).sum())
-                   for _, b in zip(range(VAL_IMAGES), val_loader))
-    log(f"[mscale-train] validation confusion matrices count {sums} pixels "
-        f"(want {labelled} labelled pixels each)")
-    if sums != [labelled, labelled]:
+                   for b in val_loader)
+    log(f"[mscale-train] validation confusion matrix counts {sums} pixels "
+        f"(want {labelled} labelled pixels, one validation)")
+    if sums != [labelled]:
         raise AssertionError(f"confusion matrices count {sums}")
     model = recorded[-1][0].model
     trained = {k: v.detach().cpu() for k, v in model.state_dict().items()}
@@ -2290,7 +2335,8 @@ def phase_mapillary_eval(card_info: str, mroot: str) -> dict:
     """``eval_mapillary.yaml`` as shipped (W48 HRNet_Mscale, 65 classes,
     scales 0.25 / 0.5 / 1.0 / 2.0 in the model, flip, pre_size 2177,
     ``pad_multiple`` 64, bf16 fusion, the uint8 wire) through
-    ``evaluate_only`` over the seeded Mapillary tree's 5 ragged val scenes,
+    ``evaluate_only`` over the seeded Mapillary tree's ragged val scenes
+    (MAPILLARY_VAL_HW),
     with seeded weights whose BN statistics are calibrated on one of them.
     Held: 8 attention and 24 bottleneck launches an image, each kernel vs
     its plain version at the model's own inputs (K = 65, up to the 2.0x
@@ -2455,8 +2501,8 @@ def phase_mapillary_train(card_info: str, mroot: str) -> None:
 # ------------------------------------------------ data-parallel training
 
 # [ddp-train]'s tree: 4 train scenes (2 steps an epoch a rank at batch 2)
-# and 4 val scenes (2 a rank: the val sampler does not pad)
-DDP_TRAIN_IMAGES, DDP_VAL_IMAGES = 4, 4
+# and 2 val scenes (1 a rank: the val sampler does not pad)
+DDP_TRAIN_IMAGES, DDP_VAL_IMAGES = 4, 2
 # [ddp-parity]: two ranks vs one process, tiny f32 CE step on the card,
 # TF32 off; cuDNN picks other algorithms at batch 1 than at batch 2
 DDP_PARITY_TOL = {"loss_rel": 1e-5, "params_l1": 1e-5, "stats_l1": 1e-5}
@@ -2590,7 +2636,8 @@ def _child_loader(spec: dict) -> None:
     """[loader]'s two runs, in a process of its own so that the process
     loader's forkserver and workers end with it: one epoch of the
     ``train_cityscapes.yaml`` train set through each loader, then the
-    DeepLabV3+ recipe through the process loader for one epoch (a
+    DeepLabV3+ recipe through the process loader for one epoch over
+    ``spec["cli_root"]`` (a
     termination request ends the run after it). Records the batches/s,
     whether the batches are equal and the CLI's output into
     ``spec["out"]``."""
@@ -2623,12 +2670,13 @@ def _child_loader(spec: dict) -> None:
     stop = Path(root, "loader_stop")
     stop.touch()
     os.environ["TPUSEG_TERMINATE_FILE"] = str(stop)
+    sub = spec["cli_root"]
     res["text"], res["wall"] = _run_train_cli(
         str(Path(root, "loader_logs")), [
             "train.batch_size=1", "train.test_mode=true",
             "train.log_every=1", "train.val_freq=2", "dataset.loader=grain",
-            f"dataset.cityscapes_dir={root}",
-            f"dataset.centroid_root={Path(root, 'centroids')}"])
+            f"dataset.cityscapes_dir={sub}",
+            f"dataset.centroid_root={Path(sub, 'centroids')}"])
     res["modules"] = _reference_modules()
     Path(spec["out"]).write_text(json.dumps(res))
 
@@ -2641,12 +2689,13 @@ def phase_loader(card_info: str, root: str) -> None:
     batches equal byte for byte. Printed: batches/s of each (the process
     loader's first epoch includes starting its forkserver; then a second
     pass). Then the DeepLabV3+ recipe with ``dataset.loader=grain`` through
-    the CLI's code for one epoch of 10 steps, its host data wait beside
-    the threaded loader's in [deepv3-train]. Both run in a child process
+    the CLI's code for one epoch of TRAIN_STEPS steps over [deepv3-train]'s
+    scenes, its host data wait beside the threaded loader's there. Both run in a child process
     (:func:`_child_loader`), stopped with all it started."""
     out = Path("chiprun_out/loader")
     out.mkdir(parents=True, exist_ok=True)
-    spec = {"root": root, "out": str(out / "loader.json")}
+    spec = {"root": root, "out": str(out / "loader.json"),
+            "cli_root": _subset_tree(root, TRAIN_STEPS, TRAIN_VAL_IMAGES)}
     _run_ranks([sys.executable, __file__, "--child", "loader",
                 json.dumps(spec)], out / "loader.log")
     res = json.loads(Path(spec["out"]).read_text())
@@ -2925,7 +2974,7 @@ def phase_ddp_train(card_info: str, root: str) -> dict:
     the one card: ``torch.distributed.run --nproc-per-node 2`` and
     ``--multi-host``, gloo, batch 2 (1 a rank), ``dataset.loader=grain``,
     ``test_mode``, over a tree of DDP_TRAIN_IMAGES train scenes (2 steps
-    an epoch) and DDP_VAL_IMAGES val scenes (2 a rank), both kernels in
+    an epoch) and DDP_VAL_IMAGES val scenes (1 a rank), both kernels in
     the validations. The first launch stops after epoch 0 on a termination
     request that only rank 1 sees; a restart resumes from its checkpoint
     and runs epoch 1. Held: both launches end on both ranks, one
@@ -3023,19 +3072,22 @@ def phase_ddp_train(card_info: str, root: str) -> dict:
     return total
 
 
+# [ddp-nccl]'s tree: 3 train scenes (3 steps) and 2 val scenes
+NCCL_TRAIN, NCCL_VAL = 3, 2
+
+
 def phase_ddp_nccl(card_info: str, root: str) -> None:
     """One rank with the production backend: ``torch.distributed.run
     --nproc-per-node 1`` of the CLI's code with ``--multi-host`` (NCCL on
-    the card), ``train_cityscapes.yaml`` at W48 over a 5-scene train tree:
-    5 steps, one validation of 5 images, then a termination request.
+    the card), ``train_cityscapes.yaml`` at W48 over a tree of NCCL_TRAIN
+    train and NCCL_VAL val scenes: 3 steps, one validation of 2 images,
+    then a termination request.
     Held: NCCL started and DDP wrapped the model, the epoch, the
     validation and its checkpoint. That more than one card trains
     correctly is not shown here (one card)."""
     out = Path("chiprun_out/ddp_nccl")
     out.mkdir(parents=True, exist_ok=True)
-    sub = Path(root, "subset_5")
-    if not sub.exists():
-        _subset_tree(root, 5)
+    sub = _subset_tree(root, NCCL_TRAIN, NCCL_VAL)
     logdir = str(Path(root, "nccl_logs"))
     stop = Path(root, "nccl_stop")
     stop.touch()
@@ -3060,9 +3112,9 @@ def phase_ddp_nccl(card_info: str, root: str) -> None:
         f"{r['validations']}, launches {r['launches']} for {r['images']} "
         f"images; checkpoints {ckpts}; whole launch {wall:.1f} s, peak "
         f"{r['peak_gib']:.2f} GiB, on {card_info}")
-    if not wrapped or "epoch 0: 5 steps on cuda:0" not in text or \
-            len(r["validations"]) != 1 or r["images"] != VAL_IMAGES or \
-            ckpts != ["ckpt_5.pt"]:
+    if not wrapped or f"epoch 0: {NCCL_TRAIN} steps on cuda:0" not in text \
+            or len(r["validations"]) != 1 or r["images"] != NCCL_VAL or \
+            ckpts != [f"ckpt_{NCCL_TRAIN}.pt"]:
         raise AssertionError("[ddp-nccl] the one-rank NCCL run did not "
                              "train, validate and checkpoint")
 
@@ -3076,13 +3128,13 @@ def phase_ddp_nccl(card_info: str, root: str) -> None:
 # in its gradients: the one process on a batch of the image twice (the
 # same loss and gradient, other kernels and sums) sets the floor, and the
 # CE gradient is held within SP_GRAD_FLOORS of it, or 1e-4
-SP_PARITY_HW = (512, 1024)
+SP_PARITY_HW = (256, 1024)
 SP_PARITY_TOL = {"loss_rel": 1e-5, "params_l1": 1e-5, "stats_l1": 1e-5,
                  "grad_l1": 1e-4}
 SP_GRAD_FLOORS = 2.0
-# [sp-train]'s tree: 3 train scenes (3 steps at batch 1, dp 1) and 4 val
-# scenes (2 a rank)
-SP_TRAIN_IMAGES, SP_VAL_IMAGES = 3, 4
+# [sp-train]'s tree: 2 train scenes (2 steps at batch 1, dp 1) and 2 val
+# scenes (1 a rank)
+SP_TRAIN_IMAGES, SP_VAL_IMAGES = 2, 2
 
 
 def _sp_inputs() -> dict:
@@ -3289,8 +3341,8 @@ def phase_sp_train(card_info: str, root: str) -> dict:
     ``train.batch_size=1`` through the CLI's code as two gloo ranks of one
     sp group on the card (``torch.distributed.run --nproc-per-node 2``,
     ``--multi-host``): each rank trains on its 512-row band of every crop.
-    ``test_mode`` over SP_TRAIN_IMAGES train scenes (3 steps) and
-    SP_VAL_IMAGES val scenes (2 a rank, whole images, both kernels), then
+    ``test_mode`` over SP_TRAIN_IMAGES train scenes (2 steps) and
+    SP_VAL_IMAGES val scenes (1 a rank, whole images, both kernels), then
     a termination request. Held: both ranks end, one checkpoint, the same
     mIoU on both, every labelled val pixel counted once, 3 attention and
     9 bottleneck launches a val image a rank, and rank 0's kernels agree
@@ -3366,15 +3418,351 @@ def phase_sp_train(card_info: str, root: str) -> dict:
     return total
 
 
+# [sp-zoo-parity]: one factory a trunk or head family at full width, f32,
+# TF32 off, cuDNN deterministic, one SP_ZOO_HW crop (every map splits into
+# two bands: 32 rows at stride 8, 16 at the 0.5x pass, 8 at stride 32),
+# dropout and drop path on with the default generator seeded alike in
+# every process. Held as [sp-parity]; the gradient within SP_GRAD_FLOORS
+# times the f32 floor (the image twice in a batch vs once, masks off) or
+# 1e-4. The mscale2, basic and deeper families are held on the CPU
+# (tests/test_torch_spatial_zoo.py), their classes on tiny trunks
+SP_ZOO = ("deepv3.DeepV3PlusR50", "deepv3.DeepV3PlusSRNX50",
+          "deepv3.DeepV3PlusX71", "deepv3.DeepV3PlusEffB4",
+          "deepv3.DeepV3PlusW38", "ocrnet.HRNet_ASPP_OCR",
+          "mscale.DeepV3W38")
+SP_ZOO_HW = (256, 512)
+SP_ZOO_SEED = 11
+SP_ZOO_TOL = {"loss_rel": 1e-5, "params_l1": 2e-5, "stats_l1": 2e-5,
+              "grad_l1": 1e-4}
+# [sp-deepv3-train]: 3 train scenes (two epochs of 3 steps at batch 1, dp
+# 1) and 2 val scenes (one a rank)
+SP_DEEPV3_TRAIN, SP_DEEPV3_VAL = 3, 2
+
+
+def _sp_zoo_inputs() -> dict:
+    """Each factory's config (f32, remat off, n-scale off: the two-scale
+    train forward of mscale) and one seeded SP_ZOO_HW scene whose top band
+    holds every ignore pixel."""
+    image, _, label = _fake_scene(2002, hw=SP_ZOO_HW)
+    label = label.copy()
+    label[:24] = 255
+    base = {"model.compute_dtype": "float32", "model.remat": False,
+            "model.n_scales": (), "loss.loss_type": "ce",
+            "loss.ocr_alpha": 0.4, "loss.supervised_mscale_wt": 0.05,
+            "optim.lr": 5e-4}
+    return {"sets": {a: {**base, "model.arch": a} for a in SP_ZOO},
+            "image": image[None], "label": label[None]}
+
+
+def _masks(model, on: bool) -> None:
+    """Dropout and drop path at their rates, or off."""
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout2d):
+            m.p = m.__dict__.setdefault("rate", m.p) if on else 0.0
+        elif hasattr(m, "drop_path"):
+            m.drop_path = (m.__dict__.setdefault("rate", m.drop_path)
+                           if on else 0.0)
+
+
+def _sp_zoo_step(model, init: dict, cfg, batch: dict, mesh=None,
+                 masks: bool = True) -> dict:
+    """One CE step of ``model`` from ``init`` on the card, the default
+    generator seeded with SP_ZOO_SEED: on this rank's band under DDP when
+    ``mesh`` is given. -> loss, gradients, parameters after SGD, BN
+    statistics (on the host) and the sp collectives with their host
+    seconds."""
+    from tpuseg_torch.parallel import shard_batch_spatial, spatial
+
+    model.load_state_dict(init)
+    _masks(model, masks)
+    net = model
+    if mesh is not None:
+        # the ranks drew the same weights: no broadcast from rank 0
+        net = torch.nn.parallel.DistributedDataParallel(
+            model, broadcast_buffers=False, init_sync=False,
+            device_ids=[torch.cuda.current_device()])
+        batch = shard_batch_spatial(mesh, batch)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+             for k, v in batch.items()}
+    step, opt = _train_step_of(cfg, model)
+    # on a band: the modules whose 4-D output is not channels_last, in
+    # call order (the ranks must run the same formats, so the same cuDNN
+    # algorithms)
+    nchw, hooks = [], []
+    if mesh is not None:
+        def record(name):
+            def hook(module, args, out):
+                if isinstance(out, torch.Tensor) and out.dim() == 4 and \
+                        spatial.memory_format(out) != torch.channels_last:
+                    nchw.append(name)
+            return hook
+
+        hooks = [m.register_forward_hook(record(n))
+                 for n, m in model.named_modules()]
+    spatial.reset_counts()
+    torch.manual_seed(SP_ZOO_SEED)
+    t0 = time.perf_counter()
+    try:
+        with spatial.sharded(None if mesh is None else mesh.bands):
+            loss = float(step(net, opt, batch, 0)["loss"])
+    finally:
+        for h in hooks:
+            h.remove()
+    return {"loss": loss, "s": time.perf_counter() - t0, "nchw": nchw,
+            "counts": dict(spatial.COUNTS),
+            "seconds": dict(spatial.SECONDS),
+            "grads": {n: p.grad.detach().cpu()
+                      for n, p in model.named_parameters()},
+            "params": {n: p.detach().cpu()
+                       for n, p in model.named_parameters()},
+            "stats": _stats(model)}
+
+
+def _child_sp_zoo(tmp: str) -> None:
+    """A rank of [sp-zoo-parity]: gloo on the card, one sp group of 2. It
+    takes each factory's step on its band; then the ranks leave the group
+    and each runs one process for every other factory (DDP left both
+    ranks' results equal): the step on the whole image, held against its
+    band's, and the f32 floor."""
+    import torch.distributed as dist
+
+    from tpuseg_torch.config import make_config
+    from tpuseg_torch.models import get_model
+    from tpuseg_torch.parallel import init_distributed, make_mesh
+
+    init_distributed("cuda", backend="gloo")
+    _deterministic()
+    inp = torch.load(Path(tmp, "inputs.pt"), weights_only=False)
+    mesh = make_mesh(2)
+    rank = mesh.sp_index
+    batch = {k: inp[k] for k in ("image", "label")}
+    torch.cuda.reset_peak_memory_stats()
+    res, mine = {}, {}
+    for i, (arch, sets) in enumerate(inp["sets"].items()):
+        cfg = make_config(sets)
+        model = get_model(cfg).to(
+            "cuda", memory_format=torch.channels_last).train()
+        _condition(model)
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        band = _sp_zoo_step(model, init, cfg, batch, mesh)
+        res[arch] = {k: band[k]
+                     for k in ("loss", "s", "nchw", "counts", "seconds")}
+        res[arch]["sums"] = {k: float(sum(t.double().abs().sum()
+                                          for t in band[k].values()))
+                             for k in ("grads", "params", "stats")}
+        if i % 2 == rank:
+            mine[arch] = model, init, cfg, band
+        del model
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    dist.destroy_process_group()  # one process from here on
+    for arch, (model, init, cfg, band) in mine.items():
+        one = _sp_zoo_step(model, init, cfg, batch)
+        # a doubled batch draws other masks: the floor runs without
+        once = _sp_zoo_step(model, init, cfg, batch, masks=False)
+        twice = _sp_zoo_step(model, init, cfg, {
+            k: np.concatenate([v, v]) for k, v in batch.items()},
+            masks=False)
+        res[arch]["one"] = {
+            "loss": one["loss"],
+            "grad_l1": _tree_l1(band["grads"], one["grads"]),
+            "params_l1": _tree_l1(band["params"], one["params"]),
+            "stats_l1": _tree_l1(band["stats"], one["stats"]),
+            "floor": _tree_l1(twice["grads"], once["grads"])}
+    res["modules"] = _reference_modules()
+    torch.save(res, Path(tmp, f"rank{rank}.pt"))
+
+
+def start_sp_zoo_parity() -> dict:
+    """Start [sp-zoo-parity]'s two ranks (``_child_sp_zoo``) in the
+    background; ``phase_sp_zoo_parity`` waits for them and holds their
+    results. -> what it needs."""
+    out = Path("chiprun_out/sp_zoo_parity")
+    out.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp()
+    torch.save(_sp_zoo_inputs(), Path(tmp, "inputs.pt"))
+    port = str(_free_port())
+    procs = []
+    for rank in (0, 1):
+        env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
+                   WORLD_SIZE="2", MASTER_ADDR="localhost", MASTER_PORT=port)
+        with open(out / f"rank{rank}.log", "w") as log_f:
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, "--child", "sp-zoo", tmp],
+                stdout=log_f, stderr=subprocess.STDOUT, env=env,
+                start_new_session=True))
+    return {"out": out, "tmp": tmp, "procs": procs,
+            "t0": time.perf_counter()}
+
+
+def phase_sp_zoo_parity(card_info: str, started: dict) -> None:
+    """One factory a trunk or head family (SP_ZOO: the stem max pool of
+    ResNet-50, SE-ResNeXt-50's Caffe-style ceil-mode pool and
+    squeeze-excite, Xception-71, EfficientNet-B4's squeeze-excite and drop
+    path, WRN38, HRNet-ASPP-OCR, mscale's two-scale DeepV3W38; ASPP's
+    image pooling in each) at full width in f32 (TF32 off, cuDNN
+    deterministic) on one SP_ZOO_HW image: one CE step as two gloo ranks
+    of one sp group on the card (each its band of rows, under DDP)
+    against one process on the whole image, dropout and drop path on in
+    both (the bands draw the masks one process draws). The ranks run in
+    the background from ``start_sp_zoo_parity`` on, beside [zoo-parity],
+    [ddp-parity] and [sp-parity]. Held for each: the ranks' mean loss within
+    SP_ZOO_TOL, the parameters after SGD and the BN statistics, the
+    gradients within 1e-4 or SP_GRAD_FLOORS times the f32 floor (the one
+    process on the image twice vs once, masks off); both ranks' results
+    equal (checksums) and their modules' outputs in the same memory
+    formats; halo exchanges and sp sums issued. Printed: the sp
+    collectives of a step and each rank's band step seconds a factory."""
+    out, tmp, procs = started["out"], started["tmp"], started["procs"]
+    try:
+        rcs = [p.wait(timeout=RANK_TIMEOUT) for p in procs]
+        if rcs != [0, 0]:
+            raise AssertionError(
+                f"[sp-zoo-parity] ranks exited {rcs}: "
+                + "".join((out / f"rank{r}.log").read_text()[-2000:]
+                          for r in (0, 1)))
+        ranks = [torch.load(Path(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in (0, 1)]
+    finally:
+        for p in procs:
+            _kill_group(p)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[sp-zoo-parity] ranks ran {time.perf_counter() - started['t0']:.1f}"
+        f" s from their start, beside [zoo-parity], [ddp-parity] and "
+        f"[sp-parity]")
+    bad = []
+    for arch in SP_ZOO:
+        got = [r[arch] for r in ranks]
+        one, = [g["one"] for g in got if "one" in g]
+        loss = (got[0]["loss"] + got[1]["loss"]) / 2
+        gaps = {"loss_rel": abs(loss - one["loss"]) / abs(one["loss"]),
+                **{k: one[k] for k in ("grad_l1", "params_l1",
+                                       "stats_l1")}}
+        bounds = dict(SP_ZOO_TOL, grad_l1=max(SP_ZOO_TOL["grad_l1"],
+                                              SP_GRAD_FLOORS * one["floor"]))
+        same = got[0]["sums"] == got[1]["sums"]
+        formats = got[0]["nchw"] == got[1]["nchw"]
+        c = got[0]
+        log(f"[sp-zoo-parity] {arch} f32 1x{SP_ZOO_HW[0]}x{SP_ZOO_HW[1]}, "
+            f"2 gloo ranks of one sp group vs one process, CE step (loss "
+            f"{one['loss']:.6f}): " + ", ".join(
+                f"{k} {v:.3e} (bound {bounds[k]:.3g})"
+                for k, v in gaps.items())
+            + f"; the f32 floor (the image twice vs once) "
+            f"{one['floor']:.3e}; ranks equal: {same}; ranks' output "
+            f"formats equal: {formats} ({len(c['nchw'])} module outputs "
+            f"not channels_last a rank); a step's sp "
+            f"collectives on a rank: " + ", ".join(
+                f"{c['counts'][k]} {k} in {c['seconds'][k]:.3f} s"
+                for k in c["counts"])
+            + f"; band step by rank {got[0]['s']:.2f} {got[1]['s']:.2f} s;"
+            f" on {card_info}")
+        if [k for k, v in gaps.items() if not v <= bounds[k]] or not same \
+                or not formats or not c["counts"]["halo"] or \
+                not c["counts"]["sum"]:
+            bad.append(arch)
+    modules = sorted({m for r in ranks for m in r["modules"]})
+    log(f"[sp-zoo-parity] peak device memory by rank "
+        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; the ranks loaded "
+        f"{modules or 'no'} tpuseg / JAX modules")
+    if bad or modules:
+        raise AssertionError(f"[sp-zoo-parity] out of bounds: {bad}, "
+                             f"modules {modules}")
+
+
+def phase_sp_deepv3_train(card_info: str, root: str) -> dict:
+    """``train_cityscapes_deepv3.yaml`` as shipped (DeepV3PlusW38 at full
+    width, 800x800 crops, bf16, plain CE, SGD + poly 2, the WRN38 blocks
+    remat'd, the uint8 wire) plus ``mesh.model_parallelism=2`` and
+    ``train.batch_size=1`` through the CLI's code as two gloo ranks of one
+    sp group on the card (``torch.distributed.run --nproc-per-node 2``,
+    ``--multi-host``): each rank trains on its 400-row band of every crop.
+    Two epochs over SP_DEEPV3_TRAIN train scenes, then one whole-image
+    validation of SP_DEEPV3_VAL val scenes (one a rank). Held: both ranks
+    end, the checkpoint written, the same mIoU on both, every labelled val
+    pixel counted once, no kernel launched (DeepLabV3+ has no OCR block
+    and no HRNet stage 1). Printed: s/step and img/s over steps 2..N, the
+    sp collectives a step with their host seconds, the ranks'
+    all-reduces, peak memory a rank and validation s/image. Returns the
+    launches over both ranks."""
+    from tpuseg_torch.cli.main import load_config
+    from tpuseg_torch.data.setup import setup_data
+
+    out = Path("chiprun_out/sp_deepv3_train")
+    out.mkdir(parents=True, exist_ok=True)
+    sub = _subset_tree(root, SP_DEEPV3_TRAIN, SP_DEEPV3_VAL)
+    logdir = str(Path(sub, "sp_deepv3_logs"))  # checkpoints stay out
+    steps = 2 * SP_DEEPV3_TRAIN
+    sets = ["mesh.model_parallelism=2", "train.batch_size=1",
+            "train.test_mode=true", "train.log_every=1",
+            "train.val_freq=2",
+            f"dataset.cityscapes_dir={sub}",
+            f"dataset.centroid_root={Path(sub, 'centroids')}"]
+    argv = ["train", "--multi-host", "--config", DEEPV3_RECIPE, "--logdir",
+            logdir]
+    for item in sets:
+        argv += ["--set", item]
+    what = (f"DeepV3PlusW38 800x800 bf16, WRN38 blocks remat'd, dp 1 x sp "
+            f"2 gloo ranks, {card_info}")
+    t0 = time.perf_counter()
+    text, ranks = _cli_ranks(2, {
+        "argv": argv, "backend": "gloo", "out": str(out / "sp")},
+        "sp-deepv3-train")
+    wall = time.perf_counter() - t0
+    for name in ("log.txt", "metrics.jsonl"):
+        shutil.copy(Path(logdir, name), out / name)
+    _log_ddp_rates("sp-deepv3-train", text, what)
+    for m in re.finditer(r"epoch \d+: sp collectives a step [^\n]*", text):
+        log(f"[sp-deepv3-train] {m.group(0)} ({what})")
+    losses = _train_losses(logdir, steps)
+    ckpts = sorted(p.name for p in Path(logdir, "ckpt").glob("*.pt"))
+    cfg = load_config(DEEPV3_RECIPE, sets)
+    _, val_loader, _ = setup_data(cfg, eval_mode="val", seed=cfg.train.seed)
+    labelled = sum(int((np.asarray(b["label"]) != 255).sum())
+                   for b in val_loader)
+    vals = [r["validations"] for r in ranks]
+    log(f"[sp-deepv3-train] loss at steps 1..{steps}: "
+        + " ".join(f"{v:.4f}" for v in losses)
+        + f"; whole launch {wall:.1f} s; validations (epoch, mIoU, pixels) "
+        f"by rank {vals} (want epoch 1, {labelled} labelled pixels); "
+        f"images by rank {[r['images'] for r in ranks]}; launches by rank "
+        f"{[r['launches'] for r in ranks]}; peak device memory by rank "
+        + ", ".join(f"{r['peak_gib']:.2f}" for r in ranks)
+        + " GiB; all_reduce calls from Python (halo exchanges, sp sums, "
+        "synced BN, losses, metrics) and their host seconds by rank: "
+        + ", ".join(f"{r['all_reduce']['calls']} in "
+                    f"{r['all_reduce']['s']:.2f} s" for r in ranks)
+        + f"; checkpoints {ckpts}")
+    bad = []
+    if vals[0] != vals[1] or len(vals[0]) != 1 or vals[0][0][0] != 1 or \
+            vals[0][0][2] != labelled:
+        bad.append(f"validations {vals}")
+    total = {"ocr_attention": 0, "bottleneck_fused": 0}
+    for r in ranks:
+        if r["images"] != SP_DEEPV3_VAL // 2 or any(r["launches"].values()):
+            bad.append(f"rank {r['rank']} launches {r['launches']} for "
+                       f"{r['images']} images")
+        for k in total:
+            total[k] += r["launches"][k]
+    if ckpts != [f"ckpt_{steps}.pt"]:
+        bad.append(f"checkpoints {ckpts}")
+    if "dp 1 x sp 2" not in text:
+        bad.append("no dp 1 x sp 2 run")
+    if bad:
+        raise AssertionError(f"[sp-deepv3-train] {bad}")
+    return total
+
+
 def child_main(argv: list) -> int:
     """A process this script starts: ``--child ddp-parity <dir>``,
-    ``--child sp-parity <dir>``, ``--child loader <json spec>`` or
-    ``--child cli <json spec>``."""
+    ``--child sp-parity <dir>``, ``--child sp-zoo <dir>``, ``--child
+    loader <json spec>`` or ``--child cli <json spec>``."""
     kind, arg = argv
     if kind == "ddp-parity":
         _child_ddp_parity(arg)
     elif kind == "sp-parity":
         _child_sp_parity(arg)
+    elif kind == "sp-zoo":
+        _child_sp_zoo(arg)
     elif kind == "loader":
         _child_loader(json.loads(arg))
     else:
@@ -3422,7 +3810,13 @@ def run() -> int:
         timed(phase_train_parity)
         train_launches = timed(phase_train, card_info, root)
         timed(phase_train_remat, card_info)
+        # the parity phases time nothing that is reported: [sp-zoo-parity]'s
+        # ranks run beside the other three
+        sp_zoo = start_sp_zoo_parity()
         timed(phase_zoo_parity, card_info)
+        timed(phase_ddp_parity, card_info)
+        timed(phase_sp_parity, card_info)
+        timed(phase_sp_zoo_parity, card_info, sp_zoo)
         timed(phase_zoo_eval, card_info)
         aspp_ocr_launches = timed(phase_aspp_ocr, card_info, root)
         timed(phase_deepv3_train, card_info, root)
@@ -3430,11 +3824,10 @@ def run() -> int:
         mscale_launches = timed(phase_mscale_eval, card_info, root)
         timed(phase_mscale_train, card_info, root)
         timed(phase_loader, card_info, root)
-        timed(phase_ddp_parity, card_info)
         ddp_launches = timed(phase_ddp_train, card_info, root)
         timed(phase_ddp_nccl, card_info, root)
-        timed(phase_sp_parity, card_info)
         sp_launches = timed(phase_sp_train, card_info, root)
+        sp_deepv3_launches = timed(phase_sp_deepv3_train, card_info, root)
     with tempfile.TemporaryDirectory() as mroot:
         t0 = time.perf_counter()
         _write_fake_mapillary(mroot)
@@ -3453,6 +3846,7 @@ def run() -> int:
         r["mapillary_launches"] = mapillary_launches[r["name"]]
         r["ddp_launches"] = ddp_launches[r["name"]]
         r["sp_launches"] = sp_launches[r["name"]]
+        r["sp_deepv3_launches"] = sp_deepv3_launches[r["name"]]
     log(f"[total] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s")
     ref_mods = _reference_modules()
     log(f"[imports] tpuseg / JAX modules loaded: {ref_mods}")

@@ -8,7 +8,10 @@ of ``tpuseg.train.step.make_train_step`` on two virtual CPU devices as
 ``make_mesh(devices[:2], model_parallelism=2)`` with the batch placed by
 ``shard_batch_spatial`` (tests/test_spatial_sharding.py:113-163), and
 writes the loss and the parameters and BN statistics after the step, in
-the port's names, to ``<dir>/jax_<loss>.pt``.
+the port's names (the key map of the step's ``model.arch``), to
+``<dir>/jax_<loss>.pt``. The WRN38 trunk's dropout is off (its masks come
+from one key over the global batch, which no band of the port's can
+draw; the port's side sets its ``Dropout2d`` to p = 0).
 """
 import os
 import pickle
@@ -30,7 +33,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from _torch_port import quick_jit  # noqa: E402
+import tpuseg.models.wider_resnet as jwrn  # noqa: E402
+from _torch_port import LinenWithoutDropout, quick_jit  # noqa: E402
 from tpuseg.config import make_config  # noqa: E402
 from tpuseg.losses.factory import get_loss  # noqa: E402
 from tpuseg.models import get_model  # noqa: E402
@@ -50,6 +54,7 @@ def main():
     with open(os.path.join(out_dir, "jax_inputs.pkl"), "rb") as f:
         inp = pickle.load(f)
     cfg = make_config(inp["step_sets"][name])
+    jwrn.nn = LinenWithoutDropout()
     model = get_model(cfg)
     criterion, _ = get_loss(cfg)
     tx, _ = make_optimizer(cfg, 1)
@@ -70,7 +75,8 @@ def main():
     to_np = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
     torch.save({"loss": float(metrics["loss"]),
                 "state": state_dict_from_flax(to_np(new.params),
-                                              to_np(new.batch_stats))},
+                                              to_np(new.batch_stats),
+                                              arch=cfg.model.arch)},
                os.path.join(out_dir, f"jax_{name}.pt"))
 
 

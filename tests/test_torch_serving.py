@@ -276,3 +276,33 @@ def test_trace_writes_a_chrome_trace(tmp_path):
         torch.ones(8, 8) @ torch.ones(8, 8)
     events = json.loads((tmp_path / "trace.json").read_text())
     assert any("mm" in e.get("name", "") for e in events["traceEvents"])
+
+
+def test_http_server_serves_a_loaded_bundle(bundle):
+    """``make_http_server(serve=...)`` serves the callable
+    ``load_exported`` returned, without a second load; that callable keeps
+    its ``ExportedProgram``s, one an entry of the manifest."""
+    path, serve = bundle[0], bundle[4]
+    assert len(serve.programs) == len(serve.manifest["entries"])
+
+    def plus_one(x):  # told apart from a load of its own
+        return serve(x) + 1
+
+    plus_one.manifest = serve.manifest
+    srv = make_http_server(path, host="127.0.0.1", port=0, serve=plus_one)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        x = np.random.RandomState(4).randn(1, *HW, 3).astype(np.float32)
+        buf = io.BytesIO()
+        np.save(buf, x)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.server_address[1]}/predict",
+            data=buf.getvalue(), method="POST")
+        got = np.load(io.BytesIO(urllib.request.urlopen(req,
+                                                        timeout=60).read()))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=30)
+    np.testing.assert_array_equal(got, serve(x).numpy() + 1)

@@ -35,10 +35,11 @@ import torch
 from _torch_port import load_into, random_variables, set_threads
 from tpuseg.config import make_config as jax_make_config
 from tpuseg.models import get_model as jax_get_model
-from tpuseg_torch.config import make_config
+from tpuseg_torch.cli.main import load_config
+from tpuseg_torch.config import infer_mscale, make_config
 from tpuseg_torch.losses import get_loss
-from tpuseg_torch.models import get_model
-from tpuseg_torch.train.loop import Trainer
+from tpuseg_torch.models import PORTED, band_geometry, get_model
+from tpuseg_torch.train.loop import Trainer, check_spatial
 from tpuseg_torch.train.optim import make_optimizer
 from tpuseg_torch.train.step import make_train_step
 
@@ -50,6 +51,8 @@ CHILD = os.path.join(HERE, "_torch_spatial_child.py")
 JAX_STEP = os.path.join(HERE, "_torch_spatial_jax.py")
 RECIPE = os.path.join(REPO, "tpuseg_torch", "cli", "recipes",
                       "train_cityscapes.yaml")
+DEEPV3_RECIPE = os.path.join(os.path.dirname(RECIPE),
+                             "train_cityscapes_deepv3.yaml")
 H, W = 128, 32
 BASE = {"model.arch": "ocrnet.HRNet_Mscale_Tiny",
         "model.compute_dtype": "float32", "model.remat": False,
@@ -256,26 +259,98 @@ def test_fit_stop_and_resume(cluster):
         "ckpt_2.json", "ckpt_2.pt", "ckpt_4.json", "ckpt_4.pt"]
 
 
+def test_bands_share_the_mask_seed(cluster):
+    """The two ranks of one sp group train bands of the same images, so
+    the Trainer seeds their default generators alike (per dp group): the
+    dropout and drop-path masks of one image are the same on every band
+    (tests/test_torch_spatial_zoo.py holds EfficientNet-B4's drop path and
+    the OCR and WRN38 dropout of such ranks against one process)."""
+    seeds = [r[run]["seed"] for run in ("stop", "resume")
+             for r in cluster["train"]]
+    assert len(set(seeds)) == 1, seeds
+
+
 @pytest.mark.parametrize("sets, error, match", [
     ({"dataset.crop_size": (64, 64)}, ValueError,
      r"crop_size \(64, 64\).*model_parallelism=2.*multiple of 128"),
-    ({"model.arch": "deepv3.DeepV3PlusW38Tiny"}, NotImplementedError,
-     r"deepv3.DeepV3PlusW38Tiny"),
+    ({"model.arch": "deepv3.DeepV3PlusW38Tiny",
+      "dataset.crop_size": (72, 64)}, ValueError,
+     r"crop_size \(72, 64\).*deepv3.DeepV3PlusW38Tiny's 1.0x pass's "
+     r"stride-8 feature maps have 9 rows.*multiple of 16"),
     ({}, ValueError, r"model_parallelism=2 must divide the number of "
                      r"ranks \(1\)"),
 ], ids=["uneven_crop", "arch", "world"])
 def test_trainer_refuses(tmp_path, sets, error, match):
     """``Trainer`` refuses, before any data or model setup, a crop whose
     0.5x feature maps would not split into equal bands (tpuseg refuses
-    the same crop at sp 2, tests/test_spatial_sharding.py:190-204), an
-    arch whose ops do not run on bands, and ranks that do not form whole
-    sp groups."""
+    the same crop at sp 2, tests/test_spatial_sharding.py:190-204), a
+    crop whose maps at the arch's own deepest stride would not (8 on the
+    DeepLab trunks: 72 rows give 9), and ranks that do not form whole sp
+    groups."""
     cfg = make_config({"model.arch": "ocrnet.HRNet_Mscale_Tiny",
                        "dataset.name": "synthetic",
                        "dataset.crop_size": (128, 64),
                        "mesh.model_parallelism": 2, **sets})
     with pytest.raises(error, match=match):
         Trainer(cfg, logdir=str(tmp_path), device="cpu")
+
+
+@pytest.mark.parametrize("arch, crop, sp", [
+    ("deepv3.DeepV3PlusW38Tiny", (80, 64), 2),
+    ("deepv3.DeepV3PlusW38Tiny", (48, 32), 2),
+    ("recipe", None, 2),
+    ("recipe", None, 4),
+], ids=["w38tiny_80", "w38tiny_48", "deepv3_recipe_sp2",
+        "deepv3_recipe_sp4"])
+def test_check_spatial_admits(arch, crop, sp):
+    """Crops the old guard refused (the crop height a multiple of 64 * sp
+    for every arch), whose maps split evenly at the arch's own deepest
+    stride: DeepV3PlusW38Tiny at multiples of 16 but not 64, and
+    ``train_cityscapes_deepv3.yaml`` as shipped (800x800, stride 8: 100
+    rows) at sp 2 and 4."""
+    if arch == "recipe":
+        cfg = load_config(DEEPV3_RECIPE, [f"mesh.model_parallelism={sp}"])
+    else:
+        cfg = make_config({"model.arch": arch, "dataset.crop_size": crop,
+                           "mesh.model_parallelism": sp})
+    check_spatial(cfg, sp)
+
+
+@pytest.mark.parametrize("arch", sorted(
+    f"{m}.{f}" for m, fs in PORTED.items() for f in fs))
+def test_check_spatial_every_arch(arch):
+    """Every arch of the port runs on bands: ``check_spatial`` admits it at
+    sp 2 at the smallest crop whose maps split evenly (its deepest stride
+    over its lowest train scale, times 2) and refuses that crop plus 8
+    rows, and at sp 4 refuses it only where the maps cannot split (the
+    plain attention head of attnscale's ASDV3P grows its maps by 2
+    rows)."""
+    stride = band_geometry(make_config({"model.arch": arch}))[0]
+    lo = 0.5 if infer_mscale(make_config({"model.arch": arch})) else 1.0
+    h = int(stride / lo) * 4
+    cfg = lambda rows, sp: make_config({  # noqa: E731
+        "model.arch": arch, "dataset.crop_size": (rows, 64),
+        "mesh.model_parallelism": sp})
+    check_spatial(cfg(h // 2, 2), 2)
+    with pytest.raises(ValueError, match="cannot be split"):
+        check_spatial(cfg(h // 2 + 8, 2), 2)
+    if arch in ("attnscale.DeepV3R50", "attnscale.DeepV3W38"):
+        with pytest.raises(ValueError, match="2 rows taller"):
+            check_spatial(cfg(h, 4), 4)
+    else:
+        check_spatial(cfg(h, 4), 4)
+
+
+def test_check_spatial_refuses_old_arch_two_channel_head():
+    """mscale's ``attn_2b`` head in the old arch is a 2x2 conv with no
+    padding: its map is a row shorter than its input, which no number of
+    bands splits evenly."""
+    cfg = make_config({"model.arch": "mscale.DeepV3W38Fuse2",
+                       "model.mscale_old_arch": True,
+                       "dataset.crop_size": (64, 64),
+                       "mesh.model_parallelism": 2})
+    with pytest.raises(ValueError, match="1 row shorter"):
+        check_spatial(cfg, 2)
 
 
 def test_children_import_no_jax(cluster):

@@ -115,7 +115,7 @@ def build_centroids(items, num_classes: int, centroid_root: str,
                     f"{json_fn} still missing after 1h: either the "
                     f"primary died mid-build, or centroid_root is not on "
                     f"a filesystem shared across hosts")
-            time.sleep(5)
+            time.sleep(0.5)  # one stat a poll
         with open(json_fn) as f:
             centroids = json.load(f)
         return {int(k): v for k, v in centroids.items()}

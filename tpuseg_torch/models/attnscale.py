@@ -142,11 +142,24 @@ def _common(cfg):
                 dtype=getattr(torch, cfg.model.compute_dtype))
 
 
-# factory -> (class, trunk)
-FACTORIES = {"DeepV3R50": (ASDV3P, "resnet-50"),
-             "DeepV3R50B": (ASDV3P, "resnet-50"),
-             "DeepV3W38": (ASDV3P, "wrn38"),
-             "DeepV3R50BP": (ASDV3P_Paired, "resnet-50")}
+# factory -> (class, trunk, its attention head's BN: fixed on, or None
+# for ``model.attnscale_bn_head``)
+FACTORIES = {"DeepV3R50": (ASDV3P, "resnet-50", None),
+             "DeepV3R50B": (ASDV3P, "resnet-50", True),
+             "DeepV3W38": (ASDV3P, "wrn38", None),
+             "DeepV3R50BP": (ASDV3P_Paired, "resnet-50", True)}
+
+
+def band_geometry(name: str, cfg) -> tuple:
+    """-> (trunk, rows the head adds to a map, train scales besides 1.0 and
+    the two-scale pass) of factory ``name`` (``models.band_geometry``): the
+    plain attention head (a 1x1 conv with padding 1) is 2 rows taller, and
+    a step runs every scale of ``model.n_scales`` (``eval.scales`` where
+    unset, as ``eval_model_config`` builds it; the paired model trains at
+    two of them)."""
+    _, trunk, bn_head = FACTORIES[name]
+    rows = 0 if bn_head or cfg.model.attnscale_bn_head else 2
+    return trunk, rows, tuple(cfg.model.n_scales or cfg.eval.scales)
 
 
 def DeepV3R50(cfg):

@@ -54,8 +54,7 @@ class ASPPModel(nn.Module):
             trunk, remat=remat, dtype=dtype, align_corners=align_corners,
             fused_stage1=fused_stage1)
         self.aspp, aspp_out_ch = make_aspp(high_ch, aspp_bot_ch,
-                                           output_stride=8,
-                                           align_corners=align_corners)
+                                           output_stride=8)
         self.bot_aspp = conv(aspp_out_ch, 256, 1)
         self.final = SegHead(256, num_classes, seg_bot_ch)
 
@@ -83,6 +82,12 @@ def _kw(cfg):
 # factory -> (class, trunk)
 FACTORIES = {"HRNet": (Basic, "hrnetv2"),
              "HRNet_ASP": (ASPPModel, "hrnetv2")}
+
+
+def band_geometry(name: str, cfg) -> tuple:
+    """-> (trunk, rows the head adds to a map, train scales besides 1.0 and
+    the two-scale pass) of factory ``name`` (``models.band_geometry``)."""
+    return FACTORIES[name][1], 0, ()
 
 
 def HRNet(cfg):

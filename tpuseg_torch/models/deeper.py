@@ -27,8 +27,7 @@ class DeeperS8(nn.Module):
         self.backbone, s2_ch, s4_ch, high_ch = get_trunk(
             trunk, remat=remat, dtype=dtype, align_corners=align_corners,
             fused_stage1=fused_stage1)
-        self.aspp, aspp_out_ch = make_aspp(high_ch, 256, output_stride=8,
-                                           align_corners=align_corners)
+        self.aspp, aspp_out_ch = make_aspp(high_ch, 256, output_stride=8)
         self.convs2 = conv(s2_ch, 32, 1)
         self.convs4 = conv(s4_ch, 64, 1)
         self.conv_up1 = conv(aspp_out_ch, 256, 1)
@@ -67,6 +66,12 @@ def _kw(cfg):
 # factory -> (class, trunk)
 FACTORIES = {"DeeperW38": (DeeperS8, "wrn38"),
              "DeeperX71": (DeeperS8, "xception71")}
+
+
+def band_geometry(name: str, cfg) -> tuple:
+    """-> (trunk, rows the head adds to a map, train scales besides 1.0 and
+    the two-scale pass) of factory ``name`` (``models.band_geometry``)."""
+    return FACTORIES[name][1], 0, ()
 
 
 def DeeperW38(cfg):

@@ -15,7 +15,7 @@ from tpuseg_torch.models.heads import make_aspp
 from tpuseg_torch.models.layers import SegHead, conv
 from tpuseg_torch.models.ocrnet import to_nchw, to_nhwc
 from tpuseg_torch.models.trunks import get_trunk
-from tpuseg_torch.ops import resize_bilinear, scale_as
+from tpuseg_torch.ops import scale_as
 
 
 class DeepV3Plus(nn.Module):
@@ -35,8 +35,7 @@ class DeepV3Plus(nn.Module):
             trunk, remat=remat, dtype=dtype, align_corners=align_corners,
             fused_stage1=fused_stage1)
         self.aspp, aspp_out_ch = make_aspp(high_ch, 256, output_stride=8,
-                                           dpc=use_dpc,
-                                           align_corners=align_corners)
+                                           dpc=use_dpc)
         self.bot_fine = conv(s2_ch, 48, 1)
         self.bot_aspp = conv(aspp_out_ch, 256, 1)
         # the reference's final Sequential has make_seg_head's layout
@@ -52,8 +51,8 @@ class DeepV3Plus(nn.Module):
         the attention heads read)."""
         conv_aspp = self.bot_aspp(aspp)
         conv_s2 = self.bot_fine(s2)
-        conv_aspp = resize_bilinear(conv_aspp, s2.shape[-2:],
-                                    self.align_corners).to(conv_s2.dtype)
+        conv_aspp = scale_as(conv_aspp, s2,
+                             self.align_corners).to(conv_s2.dtype)
         cat_s4 = torch.cat([conv_s2, conv_aspp], dim=1)
         out = scale_as(self.final(cat_s4).float(), x, self.align_corners)
         return out, cat_s4
@@ -77,8 +76,7 @@ class DeepV3(nn.Module):
             trunk, remat=remat, dtype=dtype, align_corners=align_corners,
             fused_stage1=fused_stage1)
         self.aspp, aspp_out_ch = make_aspp(high_ch, 256, output_stride,
-                                           dpc=use_dpc,
-                                           align_corners=align_corners)
+                                           dpc=use_dpc)
         # the reference's make_seg_head reads SEGATTN_BOT_CH
         self.final = SegHead(aspp_out_ch, num_classes, seg_bot_ch)
 
@@ -112,6 +110,12 @@ TRUNKS = {
     "DeepV3PlusW38Tiny": "wrn38_tiny",
     "DeepV3R50": "resnet-50",
 }
+
+
+def band_geometry(name: str, cfg) -> tuple:
+    """-> (trunk, rows the head adds to a map, train scales besides 1.0 and
+    the two-scale pass) of factory ``name`` (``models.band_geometry``)."""
+    return TRUNKS[name], 0, ()
 
 
 def _plus(factory):

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from tpuseg_torch.models.hrnet import remat_call
 from tpuseg_torch.models.layers import Conv2d, Norm, conv
+from tpuseg_torch.ops import global_avg_pool
 
 # B0 stage table: (expand, channels, repeats, stride, kernel)
 _B0_STAGES = (
@@ -58,7 +59,9 @@ def round_repeats(n: int, depth_mult: float) -> int:
 
 
 def drop_path(x: torch.Tensor, rate: float) -> torch.Tensor:
-    """Stochastic depth on a residual branch: one keep draw a sample."""
+    """Stochastic depth on a residual branch: one keep draw a sample, from
+    the device's default generator. Under dp x sp the ``Trainer`` seeds it
+    per dp group, so the bands of one image draw the same mask."""
     keep = 1.0 - rate
     mask = torch.empty((x.shape[0], 1, 1, 1), device=x.device,
                        dtype=x.dtype).bernoulli_(keep)
@@ -66,8 +69,9 @@ def drop_path(x: torch.Tensor, rate: float) -> torch.Tensor:
 
 
 class SqueezeExcite(nn.Module):
-    """Global pool (in f32) -> 1x1 reduce -> SiLU -> 1x1 expand -> sigmoid
-    gate (in f32)."""
+    """Global pool (in f32, ``ops.global_avg_pool``: the whole image's mean
+    on bands too) -> 1x1 reduce -> SiLU -> 1x1 expand -> sigmoid gate (in
+    f32)."""
 
     def __init__(self, channels: int, se_ch: int):
         super().__init__()
@@ -75,7 +79,7 @@ class SqueezeExcite(nn.Module):
         self.conv_expand = conv(se_ch, channels, 1, bias=True)
 
     def forward(self, x):
-        s = x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype)
+        s = global_avg_pool(x.float()).to(x.dtype)
         s = self.conv_expand(F.silu(self.conv_reduce(s)))
         return x * torch.sigmoid(s.float()).to(x.dtype)
 

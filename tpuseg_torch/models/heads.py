@@ -11,6 +11,14 @@ to channels_last: on an H100, cuDNN's channels_last kernels for these
 rates took about 1 s for HRNet_ASPP_OCR's 720 -> 256 rate-12 conv at
 256x512 against about 15 ms on NCHW, with or without
 ``cudnn.benchmark`` (``chip_smoke.py`` [zoo-eval], PERF.md).
+
+On bands (dp x sp, ``parallel/spatial.py``) ASPP's image pooling takes the
+whole image's mean (``ops.global_avg_pool``); its 1x1 conv and BN then
+run on a (N, C, 1, 1) tensor that is the same on every rank of the sp
+group (``spatial.replicated``: batch norm counts it once), broadcast to
+the band's rows. The dilated convs take their halos in ``Conv2d``: up to
+36 rows (ASPP's rate 36, DPC's (36, 30) pair at output stride 8), which
+on a small crop or a wide sp group reach past the neighbouring band.
 """
 from __future__ import annotations
 
@@ -20,7 +28,8 @@ import torch
 import torch.nn as nn
 
 from tpuseg_torch.models.layers import Conv2d, Norm, conv
-from tpuseg_torch.ops import resize_bilinear
+from tpuseg_torch.ops import global_avg_pool
+from tpuseg_torch.parallel import spatial
 
 
 def _conv_bn_relu(cin: int, cout: int, kernel: int, dilation: int = 1
@@ -37,23 +46,24 @@ class ASPP(nn.Module):
     162-218). Output channels = 5 * reduction_dim."""
 
     def __init__(self, cin: int, reduction_dim: int = 256,
-                 output_stride: int = 8, rates: Sequence[int] = (6, 12, 18),
-                 align_corners: bool = False):
+                 output_stride: int = 8, rates: Sequence[int] = (6, 12, 18)):
         super().__init__()
         if output_stride == 8:
             rates = [2 * r for r in rates]
-        self.align_corners = align_corners
         self.img_conv = _conv_bn_relu(cin, reduction_dim, 1)
         self.features = nn.ModuleList(
             [_conv_bn_relu(cin, reduction_dim, 1)]
             + [_conv_bn_relu(cin, reduction_dim, 3, r) for r in rates])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # image-level features: global average pool -> 1x1 -> upsample (a
-        # BN over one value per channel at batch 1: layers.BatchNorm2d)
-        img = self.img_conv(x.mean(dim=(2, 3), keepdim=True))
-        img = resize_bilinear(img, x.shape[-2:], self.align_corners)
-        outs = [img.to(x.dtype)] + [f(x) for f in self.features]
+        # image-level features: global average pool -> 1x1 -> broadcast
+        # (the bilinear upsample of a 1x1 map; a BN over one value per
+        # channel at batch 1: layers.BatchNorm2d)
+        pooled = global_avg_pool(x)
+        with spatial.replicated():
+            img = self.img_conv(pooled)
+        img = img.to(x.dtype).expand(-1, -1, *x.shape[-2:])
+        outs = [img] + [f(x) for f in self.features]
         return _channels_last(torch.cat(outs, dim=1))
 
 
@@ -98,12 +108,11 @@ class DPC(nn.Module):
 
 
 def make_aspp(cin: int, bottleneck_ch: int, output_stride: int,
-              dpc: bool = False, align_corners: bool = False):
+              dpc: bool = False):
     """-> (module, out_channels) (reference get_aspp: network/utils.py:
     301-311)."""
     if dpc:
         mod = DPC(cin, bottleneck_ch, output_stride)
     else:
-        mod = ASPP(cin, bottleneck_ch, output_stride,
-                   align_corners=align_corners)
+        mod = ASPP(cin, bottleneck_ch, output_stride)
     return mod, 5 * bottleneck_ch

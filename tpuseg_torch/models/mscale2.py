@@ -165,6 +165,12 @@ FACTORIES = {"DeepV3R50": (MscaleV3Plus2, "resnet-50"),
              "HRNet": (Basic2, "hrnetv2")}
 
 
+def band_geometry(name: str, cfg) -> tuple:
+    """-> (trunk, rows the head adds to a map, train scales besides 1.0 and
+    the two-scale pass) of factory ``name`` (``models.band_geometry``)."""
+    return FACTORIES[name][1], 0, ()
+
+
 def DeepV3R50(cfg):
     """Factory: MscaleV3Plus2 on resnet-50."""
     return MscaleV3Plus2(trunk="resnet-50", **_common(cfg))

@@ -70,8 +70,7 @@ class OCRNetASPP(nn.Module):
         self.backbone = HRNetV2(spec, align_corners, dtype, fused_stage1,
                                 remat)
         self.aspp, aspp_out_ch = make_aspp(spec.high_level_ch, 256,
-                                           output_stride=8,
-                                           align_corners=align_corners)
+                                           output_stride=8)
         self.ocr = OCRBlock(aspp_out_ch, num_classes, mid_channels,
                             key_channels, use_pallas, ocr_dropout)
 
@@ -157,6 +156,13 @@ def _common(cfg):
         dtype=getattr(torch, cfg.model.compute_dtype),
         remat=cfg.model.remat,
     )
+
+
+def band_geometry(name: str, cfg) -> tuple:
+    """-> (trunk, rows the head adds to a map, train scales besides 1.0 and
+    the two-scale pass) of factory ``name`` (``models.band_geometry``):
+    every factory here is HRNetV2 under an OCR head."""
+    return "hrnetv2", 0, ()
 
 
 def HRNet(cfg):

@@ -19,6 +19,7 @@ import torch.nn as nn
 
 from tpuseg_torch.models.hrnet import remat_call
 from tpuseg_torch.models.layers import Norm, conv
+from tpuseg_torch.ops import MaxPool2d
 
 
 class ResNetBottleneck(nn.Module):
@@ -85,10 +86,11 @@ class ResNet(LayeredTrunk):
         super().__init__()
         self.dtype = dtype
         self.remat = bool(remat)
-        # stem: 7x7 s2 + maxpool s2
+        # stem: 7x7 s2 + maxpool s2 (ops.max_pool2d: on the image's grid
+        # on bands too)
         self.layer0 = nn.Sequential(conv(3, width, 7, 2, padding=3),
                                     Norm(width), nn.ReLU(),
-                                    nn.MaxPool2d(3, 2, 1))
+                                    MaxPool2d(3, 2, 1))
         inplanes = width
         for li, (n, (planes, stride, dil)) in enumerate(
                 zip(layers, stride_plan(output_stride, width)), start=1):

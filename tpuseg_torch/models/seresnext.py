@@ -17,11 +17,13 @@ import torch.nn as nn
 
 from tpuseg_torch.models.layers import Conv2d, Norm, conv
 from tpuseg_torch.models.resnet import LayeredTrunk, stride_plan
+from tpuseg_torch.ops import MaxPool2d, global_avg_pool
 
 
 class SEModule(nn.Module):
-    """Squeeze-and-excite (reference: SEresnext.py:70-90); the gate's
-    sigmoid in f32."""
+    """Squeeze-and-excite (reference: SEresnext.py:70-90) over the image's
+    mean (``ops.global_avg_pool``, whole on bands too); the gate's sigmoid
+    in f32."""
 
     def __init__(self, channels: int, reduction: int = 16):
         super().__init__()
@@ -29,7 +31,7 @@ class SEModule(nn.Module):
         self.fc2 = conv(channels // reduction, channels, 1, bias=True)
 
     def forward(self, x):
-        s = torch.relu(self.fc1(x.mean(dim=(2, 3), keepdim=True)))
+        s = torch.relu(self.fc1(global_avg_pool(x)))
         return x * torch.sigmoid(self.fc2(s).float()).to(x.dtype)
 
 
@@ -75,10 +77,11 @@ class SEResNeXt(LayeredTrunk):
         self.remat = bool(remat)
         # one 7x7 s2 (input_3x3=False for se_resnext, SEresnext.py:44-67)
         # and a Caffe-style maxpool: padding 0, ceil_mode (SEresnext.py:
-        # 269-272; torchvision's padding=1 aligns the windows differently)
+        # 269-272; torchvision's padding=1 aligns the windows differently),
+        # on the image's grid on bands too (ops.max_pool2d)
         self.layer0 = nn.Sequential(OrderedDict(
             conv1=conv(3, 64, 7, 2, padding=3), bn1=Norm(64),
-            relu1=nn.ReLU(), pool=nn.MaxPool2d(3, 2, 0, ceil_mode=True)))
+            relu1=nn.ReLU(), pool=MaxPool2d(3, 2, 0, ceil_mode=True)))
         inplanes = 64
         for li, (n, (planes, stride, dil)) in enumerate(
                 zip(layers, stride_plan(output_stride, 64)), start=1):

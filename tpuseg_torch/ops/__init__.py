@@ -1,11 +1,14 @@
 from tpuseg_torch.ops.normalize import device_label, device_normalize
 from tpuseg_torch.ops.resize import (
+    MaxPool2d,
     avg_pool2d,
+    global_avg_pool,
     max_pool2d,
     resize_bilinear,
     resize_x,
     scale_as,
 )
 
-__all__ = ["avg_pool2d", "device_label", "device_normalize", "max_pool2d",
-           "resize_bilinear", "resize_x", "scale_as"]
+__all__ = ["MaxPool2d", "avg_pool2d", "device_label", "device_normalize",
+           "global_avg_pool", "max_pool2d", "resize_bilinear", "resize_x",
+           "scale_as"]

@@ -23,8 +23,12 @@ a gather. It computes the same linear map as the autograd of
 ``F.interpolate``, so it has no counterpart here.
 
 ``avg_pool2d`` and ``max_pool2d`` (``tpuseg/ops/resize.py:187-238``) take
-NCHW-logical tensors like the resizes above (``tpuseg``'s take NHWC) and
-compute in f32, cast back to the input's dtype.
+NCHW-logical tensors like the resizes above (``tpuseg``'s take NHWC);
+``avg_pool2d`` computes in f32, cast back to the input's dtype, and
+``max_pool2d`` in the input's. Both keep the input's memory format on
+every band. ``MaxPool2d`` is
+``max_pool2d`` as a module, for the trunks' stems; ``global_avg_pool`` is
+the mean over H x W of ASPP's image pooling and squeeze-excite.
 
 On bands (dp x sp, ``parallel/spatial.py``) sizes are the image's global
 sizes (``scale_as`` reads ``y``'s global height), and the H axis is
@@ -32,13 +36,16 @@ resampled from global row indices: source rows are clamped only at the
 image's top and bottom, and a band reads the rows it needs past its edges
 from its neighbours. ``F.interpolate`` on a bare band would clamp at the
 band's edges, and so be wrong on exactly the rows next to a band boundary.
-Pool windows sit on the global grid the same way.
+Pool windows sit on the global grid the same way, and a global average
+pool takes the image's mean: the bands' sums summed over the group, over
+the image's pixel count.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
 
 from tpuseg_torch.parallel import spatial
@@ -94,12 +101,41 @@ def avg_pool2d(x: torch.Tensor, window: int, stride: int | None = None,
 
 def max_pool2d(x: torch.Tensor, window: int, stride: int | None = None,
                padding: int = 0, ceil_mode: bool = False) -> torch.Tensor:
-    """Max pool; ``ceil_mode`` keeps the partial windows at the trailing
-    edge (the Caffe-style SENet stem, reference SEresnext.py:269-272)."""
-    y, pad = _band_rows(x.float(), window, stride or window, padding,
-                        float("-inf"), ceil_mode)
-    y = F.max_pool2d(y, window, stride or window, pad, ceil_mode=ceil_mode)
-    return y.to(x.dtype)
+    """Max pool in ``x``'s dtype (a max is exact in any); ``ceil_mode``
+    keeps the partial windows at the trailing edge (the Caffe-style SENet
+    stem, reference SEresnext.py:269-272)."""
+    y, pad = _band_rows(x, window, stride or window, padding, float("-inf"),
+                        ceil_mode)
+    return F.max_pool2d(y, window, stride or window, pad,
+                        ceil_mode=ceil_mode)
+
+
+class MaxPool2d(nn.Module):
+    """``max_pool2d`` as a parameter-free module (``nn.MaxPool2d``'s
+    arguments), so a stem's ``nn.Sequential`` keeps its indices and its
+    state-dict keys."""
+
+    def __init__(self, kernel_size: int, stride: int | None = None,
+                 padding: int = 0, ceil_mode: bool = False):
+        super().__init__()
+        self.kernel_size, self.stride = kernel_size, stride or kernel_size
+        self.padding, self.ceil_mode = padding, ceil_mode
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return max_pool2d(x, self.kernel_size, self.stride, self.padding,
+                          self.ceil_mode)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """The (N, C, 1, 1) mean of NCHW ``x`` over the image's H x W. On bands:
+    the band's f32 sum, summed over the sp group (whose backward spreads
+    the gradient to every band), over the image's pixel count, in
+    ``x.dtype``; otherwise ``x.mean((2, 3))``."""
+    if spatial.active() is None:
+        return x.mean(dim=(2, 3), keepdim=True)
+    h, w = spatial.global_size(x)
+    s = spatial.band_sum(x.float().sum(dim=(2, 3), keepdim=True))
+    return (s / (h * w)).to(x.dtype)
 
 
 def _band_rows(x: torch.Tensor, window: int, stride: int, padding: int,
@@ -119,6 +155,9 @@ def _band_rows(x: torch.Tensor, window: int, stride: int, padding: int,
     y = spatial.gather_rows(x, needs)
     lo, hi = needs[bands.index]
     if fill and (lo < 0 or hi > h_in):
+        # masked_fill's broadcast mask would leave the band NCHW: an edge
+        # band keeps the format its neighbours keep
         rows = torch.arange(lo, hi, device=x.device).view(1, 1, -1, 1)
-        y = y.masked_fill((rows < 0) | (rows >= h_in), fill)
+        y = y.masked_fill((rows < 0) | (rows >= h_in), fill).contiguous(
+            memory_format=spatial.memory_format(x))
     return y, (0, padding)

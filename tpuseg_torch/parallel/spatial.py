@@ -191,7 +191,7 @@ class _GatherRows(torch.autograd.Function):
         buf = None
         if rows:
             # every band writes the rows it owns into the others' slots
-            buf = _buffer(x, dim, rows)
+            buf = _buffer(x, dim, rows, keep_format=False)
             for i, a, b, off in slots:
                 a2, b2 = max(a, me * h), min(b, (me + 1) * h)
                 if i != me and b2 > a2:
@@ -222,7 +222,7 @@ class _GatherRows(torch.autograd.Function):
                 g.narrow(dim, a - lo, b - a))
         if rows:
             # each band sends its halo rows' gradients back to their owners
-            buf = _buffer(g, dim, rows)
+            buf = _buffer(g, dim, rows, keep_format=False)
             for i, a, b, off in slots:
                 if i == me:
                     buf.narrow(dim, off, b - a).copy_(
@@ -236,17 +236,26 @@ class _GatherRows(torch.autograd.Function):
         return dx, None, None, None
 
 
-def _buffer(like: torch.Tensor, dim: int, rows: int) -> torch.Tensor:
+def memory_format(x: torch.Tensor) -> torch.memory_format:
+    """``x``'s memory format: channels_last for a 4-D tensor laid out so
+    (and not also contiguous), else contiguous."""
+    return (torch.channels_last if x.dim() == 4 and not x.is_contiguous()
+            and x.is_contiguous(memory_format=torch.channels_last)
+            else torch.contiguous_format)
+
+
+def _buffer(like: torch.Tensor, dim: int, rows: int,
+            keep_format: bool = True) -> torch.Tensor:
     """Zeros shaped as ``like`` with ``rows`` along ``dim``, in its memory
-    format (channels_last stays channels_last for cuDNN)."""
+    format (channels_last stays channels_last for cuDNN) or, for a buffer
+    that is all-reduced (``keep_format`` off), contiguous: ``all_reduce``
+    adds the ranks' buffers element by element in memory, so its layout
+    must not hang on each rank's format of the band."""
     shape = list(like.shape)
     shape[dim] = rows
-    fmt = (torch.channels_last if like.dim() == 4 and not
-           like.is_contiguous() and
-           like.is_contiguous(memory_format=torch.channels_last)
-           else torch.contiguous_format)
     return torch.empty(shape, dtype=like.dtype, device=like.device,
-                       memory_format=fmt).zero_()
+                       memory_format=(memory_format(like) if keep_format
+                                      else torch.contiguous_format)).zero_()
 
 
 def gather_rows(x: torch.Tensor, needs: Sequence[tuple], dim: int = 2,
@@ -263,13 +272,13 @@ class _BandSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        y = x.clone()
+        y = x.clone(memory_format=torch.contiguous_format)
         _all_reduce(y, group, "sum")
         return y
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone()
+        g = g.clone(memory_format=torch.contiguous_format)
         _all_reduce(g, ctx.group, "sum")
         return g, None
 
@@ -282,7 +291,7 @@ def band_sum(x: torch.Tensor) -> torch.Tensor:
     if bands is None:
         return x
     if not x.requires_grad:
-        x = x.clone()
+        x = x.clone(memory_format=torch.contiguous_format)
         _all_reduce(x, bands.group, "sum")
         return x
     return _BandSum.apply(x, bands.group)
@@ -291,7 +300,7 @@ def band_sum(x: torch.Tensor) -> torch.Tensor:
 def band_max(x: torch.Tensor) -> torch.Tensor:
     """The elementwise max of ``x`` over the sp group, without a gradient
     (``x`` detached outside a ``sharded`` context)."""
-    x = x.detach().clone()
+    x = x.detach().clone(memory_format=torch.contiguous_format)
     if _active is not None:
         _all_reduce(x, _active.group, "max", dist.ReduceOp.MAX)
     return x
@@ -352,6 +361,6 @@ def resize_rows(x: torch.Tensor, h_out: int, align_corners: bool
 
 __all__ = ["Bands", "COUNTS", "SECONDS", "active", "band_max", "band_sum",
            "conv_rows", "gather_rows", "global_height", "global_size",
-           "replicas", "replicated", "reset_counts", "resize_rows",
-           "sharded", "split_rows", "window_needs",
+           "memory_format", "replicas", "replicated", "reset_counts",
+           "resize_rows", "sharded", "split_rows", "window_needs",
            "window_rows"]

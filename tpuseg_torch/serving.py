@@ -139,15 +139,18 @@ def load_exported(path: str) -> Callable:
     tensor or numpy array (B, H, W, 3), the result an f32 tensor on the
     program's device. Validates the manifest and dispatches on the input
     shape across the bundle's entries; an input whose shape has only one
-    entry is cast to that entry's dtype."""
+    entry is cast to that entry's dtype. The loaded ``ExportedProgram``s
+    are kept as ``serve.programs``, one an entry."""
     import tpuseg_torch.kernels  # noqa: F401  (registers the ops)
 
     manifest = _read_manifest(path)
     if manifest is None:
         raise FileNotFoundError(f"no manifest.json under {path}")
     by_shape: dict = {}
+    programs = []
     for entry in manifest["entries"]:
         program = torch.export.load(os.path.join(path, entry["file"]))
+        programs.append(program)
         by_shape.setdefault(tuple(entry["input"]["shape"]), []).append(
             (getattr(torch, entry["input"]["dtype"]),
              torch.device(entry["device"]), program.module()))
@@ -173,12 +176,16 @@ def load_exported(path: str) -> Callable:
             return fn(x.to(device=device, dtype=dtype))
 
     serve.manifest = manifest
+    serve.programs = programs
     return serve
 
 
-def make_http_server(path: str, host: str = "0.0.0.0", port: int = 8000):
+def make_http_server(path: str, host: str = "0.0.0.0", port: int = 8000,
+                     serve: Callable | None = None):
     """A stdlib inference server over an exported bundle (the protocol of
-    ``tpuseg.serving.make_http_server``). Returns an unstarted
+    ``tpuseg.serving.make_http_server``): the bundle at ``path`` loaded
+    here, or ``serve``, the callable ``load_exported(path)`` returned (a
+    load of a large bundle takes seconds). Returns an unstarted
     ThreadingHTTPServer; call ``serve_forever()`` (or use ``serve_http`` /
     ``python -m tpuseg_torch.cli serve``, which do).
 
@@ -191,7 +198,7 @@ def make_http_server(path: str, host: str = "0.0.0.0", port: int = 8000):
     import io
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-    fn = load_exported(path)
+    fn = serve if serve is not None else load_exported(path)
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # quiet default stderr spam

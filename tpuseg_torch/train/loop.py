@@ -41,6 +41,7 @@ Validation stays whole-image, the val split sharded over every rank, as
 """
 from __future__ import annotations
 
+import math
 import os
 import time
 from functools import partial
@@ -60,7 +61,7 @@ from tpuseg_torch.evaluation.metrics import (
     format_evaluate_results,
 )
 from tpuseg_torch.losses import get_loss, get_val_loss
-from tpuseg_torch.models import get_model
+from tpuseg_torch.models import band_geometry, get_model
 from tpuseg_torch.parallel import (
     any_rank,
     make_mesh,
@@ -92,37 +93,44 @@ def resolve_device(device: str) -> torch.device:
     return dev
 
 
-# the archs whose every op runs on bands (the HRNet trunk, the OCR block,
-# the scale-attention head and the two-scale fusion); the other trunks and
-# heads have global pools and max pools that spatial sharding leaves out
-SPATIAL_ARCHS = ("ocrnet.HRNet", "ocrnet.HRNet_Mscale",
-                 "ocrnet.HRNet_Mscale_Tiny")
-
-
 def check_spatial(cfg: Config, world: int) -> None:
     """Refuse a dp x sp run (``mesh.model_parallelism = sp > 1``) that
-    uniform bands cannot hold: every feature map of both train scales
-    must split into ``sp`` equal bands (the 0.5x pass's stride-32 maps have
-    ``crop_h / 64`` rows), the arch must be one whose ops run on bands, and
-    the ranks must form whole sp groups. ``tpuseg``'s own guard is for an
-    XLA gradient bug (``tpuseg/train/loop.py:64-86``) the port does not
+    uniform bands cannot hold, before any model or data is built: every
+    feature map of every train scale (1.0, the two-scale pass's low scale,
+    and the arch's own, ``models.band_geometry``) must split into ``sp``
+    equal bands (the crop height at scale ``s`` a multiple of the arch's
+    deepest stride times ``sp``: 32 on the HRNetV2 trunk, 8 on the DeepLab
+    trunks), and so must an attention head's map that is taller or
+    shorter than its input (``sp`` must divide the rows it adds). The
+    ranks must form whole sp groups. ``tpuseg``'s own guard is for an XLA
+    gradient bug (``tpuseg/train/loop.py:64-86``) the port does not
     have."""
     sp = cfg.mesh.model_parallelism
     if sp == 1:
         return
     crop = tuple(int(c) for c in cfg.dataset.crop_size)
-    lo = cfg.model.mscale_lo_scale if infer_mscale(cfg) else 1.0
-    unit = int(round(32 / lo)) * sp
-    if crop[0] % unit:
+    arch = cfg.model.arch
+    stride, head_rows, own_scales = band_geometry(cfg)
+    scales = {1.0, *(float(s) for s in own_scales)}
+    if infer_mscale(cfg):
+        scales.add(float(cfg.model.mscale_lo_scale))
+    for s in sorted(scales):
+        rows = math.floor(crop[0] * s)
+        if rows % (stride * sp):
+            unit = int(round(stride / min(scales))) * sp
+            raise ValueError(
+                f"dataset.crop_size {crop} cannot be split into "
+                f"mesh.model_parallelism={sp} equal bands: {arch}'s {s}x "
+                f"pass's stride-{stride} feature maps have "
+                f"{rows / stride:g} rows, so the crop height must be a "
+                f"multiple of {unit}")
+    if head_rows % sp:
+        n = abs(head_rows)
         raise ValueError(
-            f"dataset.crop_size {crop} cannot be split into "
-            f"mesh.model_parallelism={sp} equal bands: the {lo}x pass's "
-            f"stride-32 feature maps have {crop[0] * lo / 32:g} rows, so the "
-            f"crop height must be a multiple of {unit}")
-    if cfg.model.arch not in SPATIAL_ARCHS:
-        raise NotImplementedError(
-            f"mesh.model_parallelism={sp}: spatial sharding runs "
-            f"{', '.join(SPATIAL_ARCHS)}, not {cfg.model.arch}")
+            f"mesh.model_parallelism={sp}: {arch}'s attention head makes "
+            f"maps {n} row{'s' * (n != 1)} "
+            f"{'taller' if head_rows > 0 else 'shorter'} than its input, "
+            f"which do not split into {sp} equal bands")
     if world % sp:
         raise ValueError(
             f"mesh.model_parallelism={sp} must divide the number of ranks "
