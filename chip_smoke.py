@@ -37,7 +37,17 @@ spatial sharding (``mesh.model_parallelism: 2``): a W48 f32 step as two
 gloo ranks of one sp group, each on its band of the image's rows, vs one
 process ([sp-parity]); and ``train_cityscapes.yaml`` at W48 1024x2048 as
 two spatial ranks through ``torch.distributed.run`` and ``--multi-host``,
-both kernels in each rank's whole-image validation ([sp-train]).
+both kernels in each rank's whole-image validation ([sp-train]). Then
+dp x sp for every trunk and head: one factory a trunk or head family as
+two spatial ranks vs one process ([sp-zoo-parity]), and
+``train_cityscapes_deepv3.yaml`` (DeepV3PlusW38, 800x800) as two spatial
+ranks ([sp-deepv3-train]). Then uneven bands, each band padded to
+``ceil(H / sp)`` rows: W48 HRNet_Mscale, DeepV3PlusW38 and attnscale's
+plain head as three spatial ranks vs one process at crops whose maps
+split unevenly ([sp-uneven-parity]), and ``train_cityscapes_deepv3.yaml``
+as three spatial ranks, its 800, 400, 200 and 100 rows none divisible by
+3 ([sp-uneven-train]). The ranks of the parity phases run in the
+background beside [zoo-parity].
 
     python3 chip_smoke.py
 
@@ -53,10 +63,12 @@ the eval and train runs' logs to ``chiprun_out/logs/``,
 ``chiprun_out/mscale_train/``, ``chiprun_out/mapillary_train/``, the
 child processes' logs to ``chiprun_out/loader/``,
 ``chiprun_out/ddp_parity/``, ``chiprun_out/ddp_train/``,
-``chiprun_out/ddp_nccl/``, ``chiprun_out/sp_parity/`` and
-``chiprun_out/sp_train/``, and
-every line this script logs to ``chiprun_out/chip_smoke.log``; checkpoints,
-dumped images and the exported bundle stay in a
+``chiprun_out/ddp_nccl/``, ``chiprun_out/sp_parity/``,
+``chiprun_out/sp_train/``, ``chiprun_out/sp_zoo_parity/``,
+``chiprun_out/sp_deepv3_train/``, ``chiprun_out/sp_uneven_parity/`` and
+``chiprun_out/sp_uneven_train/``, and every line this script logs to
+``chiprun_out/chip_smoke.log``; checkpoints, dumped images and the
+exported bundle stay in a
 temporary directory. The line before the last is a JSON record of the
 kernels; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1063,9 +1075,10 @@ def phase_summary(card_info: str) -> None:
 # ---------------------------------------------------------------- training
 
 TRAIN_RECIPE = "tpuseg_torch/cli/recipes/train_cityscapes.yaml"
-# test_mode: 10 steps an epoch, 5 val images; 40 train images give
-# class-uniform sampling at 0.5 one centroid crop a class an epoch
-TRAIN_IMAGES, VAL_IMAGES = 40, 5
+# the seeded tree: [loader]'s train set (two batches of 8) and
+# [aspp-ocr]'s and [mscale-eval]'s val scenes; the other phases read
+# subsets of it
+TRAIN_IMAGES, VAL_IMAGES = 16, 3
 # [train], [deepv3-train], [mscale-train] and [loader]'s CLI run: steps an
 # epoch, over as many train scenes; val scenes a validation ([relaxed] too)
 TRAIN_STEPS = 5
@@ -1087,8 +1100,9 @@ def _fake_scene(seed: int, hw=SCENE_HW):
 
     rng = np.random.RandomState(seed)
     h, w = hw
-    ids = rng.randint(0, 19, (h // BLOCK, w // BLOCK)).astype(np.uint8)
-    tid = np.repeat(np.repeat(ids, BLOCK, 0), BLOCK, 1)
+    ids = rng.randint(0, 19, (-(-h // BLOCK), -(-w // BLOCK))).astype(
+        np.uint8)
+    tid = np.repeat(np.repeat(ids, BLOCK, 0), BLOCK, 1)[:h, :w]
     noise = rng.randint(-24, 25, (h, w, 3)).astype(np.int16)
     image = np.clip(PALETTE[tid].astype(np.int16) + noise, 0, 255)
     return image.astype(np.uint8), TRAINID_TO_ID[tid], tid
@@ -2975,16 +2989,17 @@ def phase_ddp_train(card_info: str, root: str) -> dict:
     ``--multi-host``, gloo, batch 2 (1 a rank), ``dataset.loader=grain``,
     ``test_mode``, over a tree of DDP_TRAIN_IMAGES train scenes (2 steps
     an epoch) and DDP_VAL_IMAGES val scenes (1 a rank), both kernels in
-    the validations. The first launch stops after epoch 0 on a termination
-    request that only rank 1 sees; a restart resumes from its checkpoint
-    and runs epoch 1. Held: both launches end on both ranks, one
-    checkpoint a validation, the restart resumed, both ranks hold the same
-    mIoU, each summed matrix counts every labelled val pixel once, each
-    rank launches 3 attention and 9 bottleneck kernels a val image of its
-    shard, and rank 0's kernels agree with their plain versions at its own
-    inputs. Printed: global s/step and img/s, each rank's data wait, peak
-    memory and validation s/image. Returns the launches over both
-    ranks."""
+    the validation. The first launch stops after epoch 0 on a termination
+    request that only rank 1 sees, checkpointed without a validation
+    (``train.val_freq=2``); a restart
+    resumes from its checkpoint and runs and validates epoch 1. Held: both
+    launches end on both ranks, a checkpoint each, the restart resumed,
+    both ranks hold the same mIoU, the summed matrix counts every labelled
+    val pixel once, each rank launches 3 attention and 9 bottleneck
+    kernels a val image of its shard (none in the first launch), and rank
+    0's kernels agree with their plain versions at its own inputs.
+    Printed: global s/step and img/s, each rank's data wait, peak memory
+    and validation s/image. Returns the launches over both ranks."""
     from tpuseg_torch.cli.main import load_config
     from tpuseg_torch.data.setup import setup_data
 
@@ -2993,7 +3008,7 @@ def phase_ddp_train(card_info: str, root: str) -> dict:
     sub = _subset_tree(root, DDP_TRAIN_IMAGES, DDP_VAL_IMAGES)
     logdir = str(Path(sub, "logs"))  # checkpoints stay out
     sets = ["train.batch_size=2", "train.test_mode=true",
-            "train.log_every=1", "model.use_pallas=true",
+            "train.log_every=1", "train.val_freq=2", "model.use_pallas=true",
             "model.fused_stage1=true", "dataset.loader=grain",
             "dataset.num_workers=4", f"dataset.cityscapes_dir={sub}",
             f"dataset.centroid_root={Path(sub, 'centroids')}"]
@@ -3023,8 +3038,9 @@ def phase_ddp_train(card_info: str, root: str) -> dict:
         + ", ".join(f"{r['peak_gib']:.2f}"
                     for r in first_ranks + restart_ranks) + " GiB; "
         "all_reduce calls from Python (synced BN, losses, metrics) and "
-        f"their host seconds by rank, over a launch of "
-        f"{DDP_TRAIN_IMAGES // 2} steps and a validation: " + ", ".join(
+        f"their host seconds by rank, over the first launch's "
+        f"{DDP_TRAIN_IMAGES // 2} steps and the restart's steps and "
+        f"validation: " + ", ".join(
             f"{r['all_reduce']['calls']} in {r['all_reduce']['s']:.2f} s"
             for r in first_ranks + restart_ranks))
 
@@ -3032,7 +3048,8 @@ def phase_ddp_train(card_info: str, root: str) -> dict:
     _, val_loader, _ = setup_data(cfg, eval_mode="val", seed=cfg.train.seed)
     labelled = sum(int((np.asarray(b["label"]) != 255).sum())
                    for b in val_loader)
-    want_vals = {"first": 0, "restart": 1}
+    # the first launch validates nothing (val_freq 2), the restart epoch 1
+    want_vals = {"first": None, "restart": 1}
     total = {"ocr_attention": 0, "bottleneck_fused": 0}
     bad = []
     for name, text, ranks in (("first", first, first_ranks),
@@ -3043,14 +3060,18 @@ def phase_ddp_train(card_info: str, root: str) -> dict:
             f"labelled pixels); images by rank "
             f"{[r['images'] for r in ranks]}; launches by rank "
             f"{[r['launches'] for r in ranks]}")
-        if vals[0] != vals[1] or len(vals[0]) != 1 or \
+        if want_vals[name] is None:
+            if vals != [[], []]:
+                bad.append(f"{name} validations {vals}")
+        elif vals[0] != vals[1] or len(vals[0]) != 1 or \
                 vals[0][0][0] != want_vals[name] or \
                 vals[0][0][2] != labelled:
             bad.append(f"{name} validations {vals}")
+        images = 0 if want_vals[name] is None else DDP_VAL_IMAGES // 2
         for r in ranks:
             want = {"ocr_attention": 3 * r["images"],
                     "bottleneck_fused": 9 * r["images"]}
-            if r["images"] != DDP_VAL_IMAGES // 2 or r["launches"] != want:
+            if r["images"] != images or r["launches"] != want:
                 bad.append(f"{name} rank {r['rank']} launches "
                            f"{r['launches']} for {r['images']} images")
             for k in total:
@@ -3137,10 +3158,10 @@ SP_GRAD_FLOORS = 2.0
 SP_TRAIN_IMAGES, SP_VAL_IMAGES = 2, 2
 
 
-def _sp_inputs() -> dict:
+def _sp_inputs(hw=SP_PARITY_HW) -> dict:
     """The W48 step's config (the recipe's model, f32, dropout 0, remat
-    off), seeded weights and one seeded scene at SP_PARITY_HW whose top
-    band holds every ignore pixel."""
+    off), seeded weights and one seeded scene at ``hw`` whose top band
+    holds every ignore pixel."""
     from tpuseg_torch.config import make_config
     from tpuseg_torch.models import get_model
 
@@ -3151,7 +3172,7 @@ def _sp_inputs() -> dict:
             "optim.lr": 5e-4}
     base = get_model(make_config({**sets, "loss.loss_type": "ce"}))
     _condition(base)
-    image, _, label = _fake_scene(2001, hw=SP_PARITY_HW)
+    image, _, label = _fake_scene(2001, hw=hw)
     label = label.copy()
     label[:48] = 255
     return {"sets": sets, "state": base.state_dict(), "image": image[None],
@@ -3175,12 +3196,8 @@ def _sp_steps(inp, mesh=None, copies: int = 1) -> dict:
         net = torch.nn.parallel.DistributedDataParallel(
             model, broadcast_buffers=False,
             device_ids=[torch.cuda.current_device()])
-    batch = {k: np.concatenate([inp[k]] * copies)
+    whole = {k: np.concatenate([inp[k]] * copies)
              for k in ("image", "label")}
-    if mesh is not None:
-        batch = shard_batch_spatial(mesh, batch)
-    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
-             for k, v in batch.items()}
     res = {}
     for name in ("rmi", "ce"):
         model.load_state_dict(inp["state"])
@@ -3188,6 +3205,11 @@ def _sp_steps(inp, mesh=None, copies: int = 1) -> dict:
         step, opt = _train_step_of(cfg, model)
         spatial.reset_counts()
         with spatial.sharded(None if mesh is None else mesh.bands):
+            # a band's rows enter the context's table of map heights
+            batch = whole if mesh is None else shard_batch_spatial(mesh,
+                                                                   whole)
+            batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+                     for k, v in batch.items()}
             loss = float(step(net, opt, batch, 0)["loss"])
         res[name] = {"loss": loss, "counts": dict(spatial.COUNTS),
                      "seconds": dict(spatial.SECONDS),
@@ -3437,6 +3459,10 @@ SP_ZOO_TOL = {"loss_rel": 1e-5, "params_l1": 2e-5, "stats_l1": 2e-5,
 # [sp-deepv3-train]: 3 train scenes (two epochs of 3 steps at batch 1, dp
 # 1) and 2 val scenes (one a rank)
 SP_DEEPV3_TRAIN, SP_DEEPV3_VAL = 3, 2
+# [sp-uneven-train]: the same 3 train scenes and 3 val scenes, one
+# a rank (the val split is sharded without padding: a rank past its
+# length would get an empty shard)
+SP_UNEVEN_VAL = 3
 
 
 def _sp_zoo_inputs() -> dict:
@@ -3481,9 +3507,6 @@ def _sp_zoo_step(model, init: dict, cfg, batch: dict, mesh=None,
         net = torch.nn.parallel.DistributedDataParallel(
             model, broadcast_buffers=False, init_sync=False,
             device_ids=[torch.cuda.current_device()])
-        batch = shard_batch_spatial(mesh, batch)
-    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
-             for k, v in batch.items()}
     step, opt = _train_step_of(cfg, model)
     # on a band: the modules whose 4-D output is not channels_last, in
     # call order (the ranks must run the same formats, so the same cuDNN
@@ -3504,6 +3527,11 @@ def _sp_zoo_step(model, init: dict, cfg, batch: dict, mesh=None,
     t0 = time.perf_counter()
     try:
         with spatial.sharded(None if mesh is None else mesh.bands):
+            # a band's rows enter the context's table of map heights
+            if mesh is not None:
+                batch = shard_batch_spatial(mesh, batch)
+            batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+                     for k, v in batch.items()}
             loss = float(step(net, opt, batch, 0)["loss"])
     finally:
         for h in hooks:
@@ -3516,6 +3544,12 @@ def _sp_zoo_step(model, init: dict, cfg, batch: dict, mesh=None,
             "params": {n: p.detach().cpu()
                        for n, p in model.named_parameters()},
             "stats": _stats(model)}
+
+
+def _sums(res: dict, keys) -> dict:
+    """Checksums of a step's tensors, to hold the ranks' results equal."""
+    return {k: float(sum(t.double().abs().sum() for t in res[k].values()))
+            for k in keys}
 
 
 def _child_sp_zoo(tmp: str) -> None:
@@ -3547,9 +3581,7 @@ def _child_sp_zoo(tmp: str) -> None:
         band = _sp_zoo_step(model, init, cfg, batch, mesh)
         res[arch] = {k: band[k]
                      for k in ("loss", "s", "nchw", "counts", "seconds")}
-        res[arch]["sums"] = {k: float(sum(t.double().abs().sum()
-                                          for t in band[k].values()))
-                             for k in ("grads", "params", "stats")}
+        res[arch]["sums"] = _sums(band, ("grads", "params", "stats"))
         if i % 2 == rank:
             mine[arch] = model, init, cfg, band
         del model
@@ -3669,30 +3701,29 @@ def phase_sp_zoo_parity(card_info: str, started: dict) -> None:
                              f"modules {modules}")
 
 
-def phase_sp_deepv3_train(card_info: str, root: str) -> dict:
-    """``train_cityscapes_deepv3.yaml`` as shipped (DeepV3PlusW38 at full
-    width, 800x800 crops, bf16, plain CE, SGD + poly 2, the WRN38 blocks
-    remat'd, the uint8 wire) plus ``mesh.model_parallelism=2`` and
-    ``train.batch_size=1`` through the CLI's code as two gloo ranks of one
-    sp group on the card (``torch.distributed.run --nproc-per-node 2``,
-    ``--multi-host``): each rank trains on its 400-row band of every crop.
-    Two epochs over SP_DEEPV3_TRAIN train scenes, then one whole-image
-    validation of SP_DEEPV3_VAL val scenes (one a rank). Held: both ranks
-    end, the checkpoint written, the same mIoU on both, every labelled val
-    pixel counted once, no kernel launched (DeepLabV3+ has no OCR block
-    and no HRNet stage 1). Printed: s/step and img/s over steps 2..N, the
-    sp collectives a step with their host seconds, the ranks'
+def _sp_deepv3_ranks(card_info: str, root: str, sp: int, n_val: int,
+                     tag: str, out: Path) -> dict:
+    """``train_cityscapes_deepv3.yaml`` as shipped plus
+    ``mesh.model_parallelism=sp`` and ``train.batch_size=1`` through the
+    CLI's code as ``sp`` gloo ranks of one sp group on the card
+    (``torch.distributed.run --nproc-per-node sp``, ``--multi-host``): two
+    epochs over SP_DEEPV3_TRAIN train scenes, then one whole-image
+    validation of ``n_val`` val scenes, one a rank. Held: every
+    rank ends, the checkpoint written, the same mIoU on every rank, every
+    labelled val pixel counted once, no kernel launched (DeepLabV3+ has no
+    OCR block and no HRNet stage 1). Printed: s/step and img/s over steps
+    2..N, the sp collectives a step with their host seconds, the ranks'
     all-reduces, peak memory a rank and validation s/image. Returns the
-    launches over both ranks."""
+    launches over the ranks."""
     from tpuseg_torch.cli.main import load_config
     from tpuseg_torch.data.setup import setup_data
 
-    out = Path("chiprun_out/sp_deepv3_train")
     out.mkdir(parents=True, exist_ok=True)
-    sub = _subset_tree(root, SP_DEEPV3_TRAIN, SP_DEEPV3_VAL)
-    logdir = str(Path(sub, "sp_deepv3_logs"))  # checkpoints stay out
+    sub = _subset_tree(root, SP_DEEPV3_TRAIN, n_val)
+    # checkpoints stay out
+    logdir = str(Path(sub, f"sp{sp}_deepv3_logs"))
     steps = 2 * SP_DEEPV3_TRAIN
-    sets = ["mesh.model_parallelism=2", "train.batch_size=1",
+    sets = [f"mesh.model_parallelism={sp}", "train.batch_size=1",
             "train.test_mode=true", "train.log_every=1",
             "train.val_freq=2",
             f"dataset.cityscapes_dir={sub}",
@@ -3702,17 +3733,16 @@ def phase_sp_deepv3_train(card_info: str, root: str) -> dict:
     for item in sets:
         argv += ["--set", item]
     what = (f"DeepV3PlusW38 800x800 bf16, WRN38 blocks remat'd, dp 1 x sp "
-            f"2 gloo ranks, {card_info}")
+            f"{sp} gloo ranks, {card_info}")
     t0 = time.perf_counter()
-    text, ranks = _cli_ranks(2, {
-        "argv": argv, "backend": "gloo", "out": str(out / "sp")},
-        "sp-deepv3-train")
+    text, ranks = _cli_ranks(sp, {
+        "argv": argv, "backend": "gloo", "out": str(out / "sp")}, tag)
     wall = time.perf_counter() - t0
     for name in ("log.txt", "metrics.jsonl"):
         shutil.copy(Path(logdir, name), out / name)
-    _log_ddp_rates("sp-deepv3-train", text, what)
+    _log_ddp_rates(tag, text, what)
     for m in re.finditer(r"epoch \d+: sp collectives a step [^\n]*", text):
-        log(f"[sp-deepv3-train] {m.group(0)} ({what})")
+        log(f"[{tag}] {m.group(0)} ({what})")
     losses = _train_losses(logdir, steps)
     ckpts = sorted(p.name for p in Path(logdir, "ckpt").glob("*.pt"))
     cfg = load_config(DEEPV3_RECIPE, sets)
@@ -3720,11 +3750,12 @@ def phase_sp_deepv3_train(card_info: str, root: str) -> dict:
     labelled = sum(int((np.asarray(b["label"]) != 255).sum())
                    for b in val_loader)
     vals = [r["validations"] for r in ranks]
-    log(f"[sp-deepv3-train] loss at steps 1..{steps}: "
+    images = [r["images"] for r in ranks]
+    log(f"[{tag}] loss at steps 1..{steps}: "
         + " ".join(f"{v:.4f}" for v in losses)
         + f"; whole launch {wall:.1f} s; validations (epoch, mIoU, pixels) "
         f"by rank {vals} (want epoch 1, {labelled} labelled pixels); "
-        f"images by rank {[r['images'] for r in ranks]}; launches by rank "
+        f"images by rank {images}; launches by rank "
         f"{[r['launches'] for r in ranks]}; peak device memory by rank "
         + ", ".join(f"{r['peak_gib']:.2f}" for r in ranks)
         + " GiB; all_reduce calls from Python (halo exchanges, sp sums, "
@@ -3733,29 +3764,284 @@ def phase_sp_deepv3_train(card_info: str, root: str) -> dict:
                     f"{r['all_reduce']['s']:.2f} s" for r in ranks)
         + f"; checkpoints {ckpts}")
     bad = []
-    if vals[0] != vals[1] or len(vals[0]) != 1 or vals[0][0][0] != 1 or \
-            vals[0][0][2] != labelled:
+    if any(v != vals[0] for v in vals) or len(vals[0]) != 1 or \
+            vals[0][0][0] != 1 or vals[0][0][2] != labelled:
         bad.append(f"validations {vals}")
+    if images != [n_val // sp] * sp:
+        bad.append(f"val images by rank {images}")
     total = {"ocr_attention": 0, "bottleneck_fused": 0}
     for r in ranks:
-        if r["images"] != SP_DEEPV3_VAL // 2 or any(r["launches"].values()):
+        if any(r["launches"].values()):
             bad.append(f"rank {r['rank']} launches {r['launches']} for "
                        f"{r['images']} images")
         for k in total:
             total[k] += r["launches"][k]
     if ckpts != [f"ckpt_{steps}.pt"]:
         bad.append(f"checkpoints {ckpts}")
-    if "dp 1 x sp 2" not in text:
-        bad.append("no dp 1 x sp 2 run")
+    if f"dp 1 x sp {sp}" not in text:
+        bad.append(f"no dp 1 x sp {sp} run")
     if bad:
-        raise AssertionError(f"[sp-deepv3-train] {bad}")
+        raise AssertionError(f"[{tag}] {bad}")
     return total
+
+
+def phase_sp_deepv3_train(card_info: str, root: str) -> dict:
+    """``train_cityscapes_deepv3.yaml`` as shipped (DeepV3PlusW38 at full
+    width, 800x800 crops, bf16, plain CE, SGD + poly 2, the WRN38 blocks
+    remat'd, the uint8 wire) as two spatial ranks (``_sp_deepv3_ranks``):
+    each rank trains on its 400-row band of every crop, every map even.
+    Returns the launches over both ranks."""
+    return _sp_deepv3_ranks(card_info, root, 2, SP_DEEPV3_VAL,
+                            "sp-deepv3-train",
+                            Path("chiprun_out/sp_deepv3_train"))
+
+
+def phase_sp_uneven_train(card_info: str, root: str) -> dict:
+    """Uneven bands: ``train_cityscapes_deepv3.yaml`` as shipped
+    with ``mesh.model_parallelism=3``, three spatial ranks
+    (``_sp_deepv3_ranks``): the maps' 800, 400, 200 and 100 rows split
+    into padded bands of 267, 134, 67 and 34 rows, none even; SP_UNEVEN_VAL
+    val scenes, one a rank. Returns the launches over the ranks."""
+    return _sp_deepv3_ranks(card_info, root, 3, SP_UNEVEN_VAL,
+                            "sp-uneven-train",
+                            Path("chiprun_out/sp_uneven_train"))
+
+
+# [sp-uneven-parity]: three gloo ranks of one sp group vs one
+# process, f32, TF32 off, cuDNN deterministic, at crops whose maps do not
+# split evenly over 3 bands, each band padded to ceil(H / 3) rows: W48
+# HRNet_Mscale (the 0.5x pass's 5 stride-32 rows held as 2 + 2 + 1),
+# DeepV3PlusW38 (25 stride-8 rows: 9 + 9 + 7) and attnscale.DeepV3R50 with
+# the plain head (its 34-row attention map at 1.0x: 12 + 12 + 10). Held
+# as [sp-zoo-parity]; the W48 RMI step printed as [sp-parity] prints it
+SP_UNEVEN = 3
+SP_UNEVEN_W48_HW = (320, 640)
+SP_UNEVEN_ZOO = {"deepv3.DeepV3PlusW38": (200, 400),
+                 "attnscale.DeepV3R50": (256, 512)}
+
+
+def _sp_uneven_inputs() -> dict:
+    """The W48 step's inputs at SP_UNEVEN_W48_HW (``_sp_inputs``), and for
+    each SP_UNEVEN_ZOO factory its config (f32, remat off, CE) and one
+    seeded scene at its crop whose top rows hold every ignore pixel."""
+    zoo = {}
+    for i, (arch, hw) in enumerate(SP_UNEVEN_ZOO.items()):
+        image, _, label = _fake_scene(2010 + i, hw=hw)
+        label = label.copy()
+        label[:24] = 255
+        zoo[arch] = {"sets": {"model.arch": arch, "model.compute_dtype":
+                              "float32", "model.remat": False,
+                              "model.n_scales": (), "loss.loss_type": "ce",
+                              "loss.ocr_alpha": 0.4, "optim.lr": 5e-4},
+                     "image": image[None], "label": label[None]}
+    return {"w48": _sp_inputs(SP_UNEVEN_W48_HW), "zoo": zoo}
+
+
+def _child_sp_uneven(tmp: str) -> None:
+    """A rank of [sp-uneven-parity]: gloo on the card, one sp group of
+    SP_UNEVEN. It takes the W48 RMI and CE steps and each SP_UNEVEN_ZOO
+    factory's CE step on its padded band; then the ranks leave the group
+    and each runs one process for one case (rank 0 the W48 steps, rank i
+    the i-th factory; DDP left every rank's results equal): the steps on
+    the whole image, held against its band's, and the f32 floor (the image
+    twice vs once)."""
+    import torch.distributed as dist
+
+    from tpuseg_torch.config import make_config
+    from tpuseg_torch.models import get_model
+    from tpuseg_torch.parallel import init_distributed, make_mesh
+
+    init_distributed("cuda", backend="gloo")
+    _deterministic()
+    inp = torch.load(Path(tmp, "inputs.pt"), weights_only=False)
+    mesh = make_mesh(SP_UNEVEN)
+    rank = mesh.sp_index
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    w48 = _sp_steps(inp["w48"], mesh)
+    res = {"w48": {name: {k: w48[name][k]
+                          for k in ("loss", "counts", "seconds")}
+                   for name in ("rmi", "ce")}}
+    res["w48"]["s"] = time.perf_counter() - t0
+    res["w48"]["sums"] = {"rmi": _sums(w48["rmi"], ("grads",)),
+                          "ce": _sums(w48["ce"],
+                                      ("grads", "params", "stats"))}
+    mine = {}
+    for i, (arch, case) in enumerate(inp["zoo"].items()):
+        cfg = make_config(case["sets"])
+        model = get_model(cfg).to(
+            "cuda", memory_format=torch.channels_last).train()
+        _condition(model)
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        batch = {k: case[k] for k in ("image", "label")}
+        band = _sp_zoo_step(model, init, cfg, batch, mesh)
+        res[arch] = {k: band[k]
+                     for k in ("loss", "s", "nchw", "counts", "seconds")}
+        res[arch]["sums"] = _sums(band, ("grads", "params", "stats"))
+        if i + 1 == rank:
+            mine[arch] = model, init, cfg, batch, band
+        del model
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    dist.destroy_process_group()  # one process from here on
+    if rank == 0:
+        one = _sp_steps(inp["w48"])
+        twice = _sp_steps(inp["w48"], copies=2)
+        for name in ("rmi", "ce"):
+            res["w48"][name]["one"] = {
+                "loss": one[name]["loss"],
+                "grad_l1": _tree_l1(w48[name]["grads"], one[name]["grads"]),
+                "floor_loss_rel": abs(twice[name]["loss"]
+                                      - one[name]["loss"]) / abs(
+                                          one[name]["loss"]),
+                "floor": _tree_l1(twice[name]["grads"], one[name]["grads"])}
+        res["w48"]["ce"]["one"]["params_l1"] = _tree_l1(
+            w48["ce"]["params"], one["ce"]["params"])
+        res["w48"]["ce"]["one"]["stats_l1"] = _tree_l1(
+            w48["ce"]["stats"], one["ce"]["stats"])
+    for arch, (model, init, cfg, batch, band) in mine.items():
+        one = _sp_zoo_step(model, init, cfg, batch)
+        # a doubled batch draws other masks: the floor runs without
+        once = _sp_zoo_step(model, init, cfg, batch, masks=False)
+        twice = _sp_zoo_step(model, init, cfg, {
+            k: np.concatenate([v, v]) for k, v in batch.items()},
+            masks=False)
+        res[arch]["one"] = {
+            "loss": one["loss"],
+            "grad_l1": _tree_l1(band["grads"], one["grads"]),
+            "params_l1": _tree_l1(band["params"], one["params"]),
+            "stats_l1": _tree_l1(band["stats"], one["stats"]),
+            "floor": _tree_l1(twice["grads"], once["grads"])}
+    res["modules"] = _reference_modules()
+    torch.save(res, Path(tmp, f"rank{rank}.pt"))
+
+
+def start_sp_uneven_parity() -> dict:
+    """Start [sp-uneven-parity]'s SP_UNEVEN ranks (``_child_sp_uneven``) in
+    the background; ``phase_sp_uneven_parity`` waits for them and holds
+    their results. -> what it needs."""
+    out = Path("chiprun_out/sp_uneven_parity")
+    out.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp()
+    torch.save(_sp_uneven_inputs(), Path(tmp, "inputs.pt"))
+    port = str(_free_port())
+    procs = []
+    for rank in range(SP_UNEVEN):
+        env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
+                   WORLD_SIZE=str(SP_UNEVEN), MASTER_ADDR="localhost",
+                   MASTER_PORT=port)
+        with open(out / f"rank{rank}.log", "w") as log_f:
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, "--child", "sp-uneven", tmp],
+                stdout=log_f, stderr=subprocess.STDOUT, env=env,
+                start_new_session=True))
+    return {"out": out, "tmp": tmp, "procs": procs,
+            "t0": time.perf_counter()}
+
+
+def phase_sp_uneven_parity(card_info: str, started: dict) -> None:
+    """Uneven bands: SP_UNEVEN gloo ranks of one sp group on the
+    card, each on its band of ceil(H / 3) rows, the rows past H padding,
+    against one process on the whole image, in f32 (TF32 off, cuDNN
+    deterministic): W48 ``HRNet_Mscale`` at SP_UNEVEN_W48_HW (the recipe's
+    RMI + aux + mscale CE step, and its CE step), DeepV3PlusW38 and
+    attnscale.DeepV3R50's plain head at their SP_UNEVEN_ZOO crops (a CE
+    step, dropout and drop path on, the masks seeded alike). The ranks run
+    in the background from ``start_sp_uneven_parity`` on, beside the other
+    parity phases. Held for each CE step, as [sp-zoo-parity]: the ranks'
+    mean loss, the parameters after SGD and the BN statistics within
+    SP_ZOO_TOL, the gradients within 1e-4 or SP_GRAD_FLOORS times the f32
+    floor (the one process on the image twice vs once, masks off); every
+    rank's results equal (checksums), the factories' module outputs in
+    the same memory formats on every rank; halo exchanges and sp sums
+    issued. Printed, not held, as [sp-parity] prints it: the W48 RMI
+    step's gaps beside its floor (its 9x9 solves amplify cuDNN's f32
+    differences far past that floor on even bands too, PERF.md).
+    Printed: each step's sp collectives with their host seconds, and each
+    rank's band step seconds."""
+    out, tmp, procs = started["out"], started["tmp"], started["procs"]
+    try:
+        rcs = [p.wait(timeout=RANK_TIMEOUT) for p in procs]
+        if rcs != [0] * SP_UNEVEN:
+            raise AssertionError(
+                f"[sp-uneven-parity] ranks exited {rcs}: "
+                + "".join((out / f"rank{r}.log").read_text()[-2000:]
+                          for r in range(SP_UNEVEN)))
+        ranks = [torch.load(Path(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(SP_UNEVEN)]
+    finally:
+        for p in procs:
+            _kill_group(p)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[sp-uneven-parity] ranks ran "
+        f"{time.perf_counter() - started['t0']:.1f} s from their start, "
+        f"beside the other parity phases")
+
+    def held(tag, got, one, same, formats=True):
+        loss = sum(g["loss"] for g in got) / len(got)
+        gaps = {"loss_rel": abs(loss - one["loss"]) / abs(one["loss"]),
+                **{k: one[k] for k in ("grad_l1", "params_l1",
+                                       "stats_l1")}}
+        bounds = dict(SP_ZOO_TOL, grad_l1=max(SP_ZOO_TOL["grad_l1"],
+                                              SP_GRAD_FLOORS * one["floor"]))
+        c = got[0]
+        log(f"[sp-uneven-parity] {tag}, {SP_UNEVEN} gloo ranks of one sp "
+            f"group vs one process (loss {one['loss']:.6f}): " + ", ".join(
+                f"{k} {v:.3e} (bound {bounds[k]:.3g})"
+                for k, v in gaps.items())
+            + f"; the f32 floor (the image twice vs once) {one['floor']:.3e}"
+            f"; ranks equal: {same}; output formats equal: {formats}; a "
+            f"step's sp collectives on a rank: " + ", ".join(
+                f"{c['counts'][k]} {k} in {c['seconds'][k]:.3f} s"
+                for k in c["counts"]) + f"; on {card_info}")
+        return ([k for k, v in gaps.items() if not v <= bounds[k]]
+                or not same or not formats or not c["counts"]["halo"])
+
+    bad = []
+    w = [r["w48"] for r in ranks]
+    one = w[0]["ce"]["one"]
+    if held(f"W48 HRNet_Mscale f32 1x{SP_UNEVEN_W48_HW[0]}x"
+            f"{SP_UNEVEN_W48_HW[1]}, CE + aux + mscale CE step",
+            [g["ce"] for g in w], one,
+            all(g["sums"]["ce"] == w[0]["sums"]["ce"] for g in w)):
+        bad.append("W48 CE")
+    rmi = w[0]["rmi"]["one"]
+    loss = sum(g["rmi"]["loss"] for g in w) / len(w)
+    c = w[0]["rmi"]
+    log(f"[sp-uneven-parity] W48 HRNet_Mscale the recipe's RMI + aux + "
+        f"mscale CE step (loss {rmi['loss']:.6f}, printed, not held): "
+        f"loss_rel {abs(loss - rmi['loss']) / abs(rmi['loss']):.3e} (floor "
+        f"{rmi['floor_loss_rel']:.3e}), grad_l1 {rmi['grad_l1']:.3e} (floor"
+        f" {rmi['floor']:.3e}); ranks' gradients equal: "
+        f"{all(g['sums']['rmi'] == w[0]['sums']['rmi'] for g in w)}; a "
+        f"step's sp collectives on a rank: " + ", ".join(
+            f"{c['counts'][k]} {k} in {c['seconds'][k]:.3f} s"
+            for k in c["counts"])
+        + f"; both steps on a band by rank "
+        + " ".join(f"{g['s']:.2f}" for g in w) + " s")
+    for arch, hw in SP_UNEVEN_ZOO.items():
+        got = [r[arch] for r in ranks]
+        one, = [g["one"] for g in got if "one" in g]
+        if held(f"{arch} f32 1x{hw[0]}x{hw[1]}, CE step", got, one,
+                all(g["sums"] == got[0]["sums"] for g in got),
+                all(g["nchw"] == got[0]["nchw"] for g in got)) or \
+                not got[0]["counts"]["sum"]:
+            bad.append(arch)
+        log(f"[sp-uneven-parity] {arch} band step by rank "
+            + " ".join(f"{g['s']:.2f}" for g in got) + " s")
+    modules = sorted({m for r in ranks for m in r["modules"]})
+    log(f"[sp-uneven-parity] peak device memory by rank "
+        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; the ranks loaded "
+        f"{modules or 'no'} tpuseg / JAX modules")
+    if bad or modules:
+        raise AssertionError(f"[sp-uneven-parity] out of bounds: {bad}, "
+                             f"modules {modules}")
 
 
 def child_main(argv: list) -> int:
     """A process this script starts: ``--child ddp-parity <dir>``,
     ``--child sp-parity <dir>``, ``--child sp-zoo <dir>``, ``--child
-    loader <json spec>`` or ``--child cli <json spec>``."""
+    sp-uneven <dir>``, ``--child loader <json spec>`` or ``--child cli
+    <json spec>``."""
     kind, arg = argv
     if kind == "ddp-parity":
         _child_ddp_parity(arg)
@@ -3763,6 +4049,8 @@ def child_main(argv: list) -> int:
         _child_sp_parity(arg)
     elif kind == "sp-zoo":
         _child_sp_zoo(arg)
+    elif kind == "sp-uneven":
+        _child_sp_uneven(arg)
     elif kind == "loader":
         _child_loader(json.loads(arg))
     else:
@@ -3810,13 +4098,15 @@ def run() -> int:
         timed(phase_train_parity)
         train_launches = timed(phase_train, card_info, root)
         timed(phase_train_remat, card_info)
-        # the parity phases time nothing that is reported: [sp-zoo-parity]'s
-        # ranks run beside the other three
+        # the parity phases time nothing that is reported: the ranks of
+        # [sp-zoo-parity] and [sp-uneven-parity] run beside the other three
         sp_zoo = start_sp_zoo_parity()
+        sp_uneven = start_sp_uneven_parity()
         timed(phase_zoo_parity, card_info)
         timed(phase_ddp_parity, card_info)
         timed(phase_sp_parity, card_info)
         timed(phase_sp_zoo_parity, card_info, sp_zoo)
+        timed(phase_sp_uneven_parity, card_info, sp_uneven)
         timed(phase_zoo_eval, card_info)
         aspp_ocr_launches = timed(phase_aspp_ocr, card_info, root)
         timed(phase_deepv3_train, card_info, root)
@@ -3828,6 +4118,7 @@ def run() -> int:
         timed(phase_ddp_nccl, card_info, root)
         sp_launches = timed(phase_sp_train, card_info, root)
         sp_deepv3_launches = timed(phase_sp_deepv3_train, card_info, root)
+        sp_uneven_launches = timed(phase_sp_uneven_train, card_info, root)
     with tempfile.TemporaryDirectory() as mroot:
         t0 = time.perf_counter()
         _write_fake_mapillary(mroot)
@@ -3847,6 +4138,7 @@ def run() -> int:
         r["ddp_launches"] = ddp_launches[r["name"]]
         r["sp_launches"] = sp_launches[r["name"]]
         r["sp_deepv3_launches"] = sp_deepv3_launches[r["name"]]
+        r["sp_uneven_launches"] = sp_uneven_launches[r["name"]]
     log(f"[total] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s")
     ref_mods = _reference_modules()
     log(f"[imports] tpuseg / JAX modules loaded: {ref_mods}")

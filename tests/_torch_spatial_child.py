@@ -1,32 +1,37 @@
-"""One rank of the dp x sp gloo clusters of tests/test_torch_spatial_ops.py
-and tests/test_torch_spatial_train.py on the CPU.
+"""One rank of the dp x sp gloo clusters of tests/test_torch_spatial_ops.py,
+tests/test_torch_spatial_train.py, tests/test_torch_spatial_zoo.py and
+tests/test_torch_spatial_uneven.py on the CPU.
 
 Run with torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK,
 MASTER_ADDR, MASTER_PORT) and ``<mode> <dir>``: reads ``<dir>/inputs.pt``
 (what the parent drew from seeds), runs this rank's band of each case
-under ``mesh.model_parallelism = 2`` and writes what the parent asserts
-to ``<dir>/<mode>_rank<r>.pt``. Modes:
+under ``mesh.model_parallelism`` (2 unless a mode says otherwise) and
+writes what the parent asserts to ``<dir>/<mode>_rank<r>.pt``. Modes:
 
-- ``ops`` (2 ranks, one sp group): every band primitive, forward and
-  backward, on this rank's band of the parent's whole tensors: convs,
+- ``ops`` (one sp group of all the ranks, 2 or 3): every band primitive,
+  forward and backward, on this rank's band of the parent's whole
+  tensors (padded where they do not split evenly): convs,
   bilinear resizes, pools (the stems' pool modules too), the global
   average pool, ASPP and DPC, RMI's pooled bands, the OCR class gather
-  and the losses;
+  the losses and batch norm;
 - ``halo`` (4 ranks, one sp group of 4): ASPP's rate-36 conv on 24-row
-  bands, whose halo spans the neighbouring band and part of the next;
+  bands (and on 23-row bands of 90 rows), whose halo spans the
+  neighbouring band and part of the next;
 - ``train`` (2 ranks): one ``HRNet_Mscale_Tiny`` step under DDP with CE and
   with RMI + aux, then ``Trainer.fit`` through the CLI's ``--multi-host``,
   stopped by a termination request after the first epoch and resumed;
 - ``grid`` (4 ranks, dp 2 x sp 2): the CE step, one image a dp group;
-- ``zoo`` (2 ranks): one CE step of each of the parent's factories at
-  full width (or of its class on a tiny trunk) from seeded conditioned
-  weights, dropout and drop path on
-  and the default generator seeded alike on both ranks (the step of
-  ``mscale.DeepV3W38Tiny`` from ``tpuseg``'s variables, its dropout at
-  p = 0). Then both ranks leave the group and run one process, each for
-  every other factory: the same step on the whole image, against which
-  the rank measures its band's step, and the f32 floor (the step with
-  every weight moved by one f32 rounding).
+- ``zoo`` (one sp group of all the ranks, 2 or 3): one step of each of
+  the parent's cases, a factory at full width (or its class on a tiny
+  trunk) from seeded conditioned weights, dropout and drop path on and
+  the default generator seeded alike on every rank (the cases held
+  against ``tpuseg``, ``jax_cases``, from its variables, their dropout at
+  p = 0). Then the ranks leave the group and run one process, each for
+  its share of the cases (``one_cases``, all by default): the same step
+  on the whole image, against which the rank measures its band's step,
+  and the f32 floor (the step with every weight moved by one f32
+  rounding). tests/test_torch_spatial_zoo.py runs it on 2 ranks,
+  tests/test_torch_spatial_uneven.py on 2 and on 3, on uneven bands.
 
 Imports nothing of ``tpuseg`` or JAX; the modules it loaded go into the
 result.
@@ -48,7 +53,7 @@ from tpuseg_torch.losses import get_loss
 from tpuseg_torch.losses import rmi as rmi_mod
 from tpuseg_torch.models import get_model
 from tpuseg_torch.models.heads import ASPP, DPC
-from tpuseg_torch.models.layers import Conv2d
+from tpuseg_torch.models.layers import Conv2d, Norm
 from tpuseg_torch.models.ocr import spatial_gather
 from tpuseg_torch.ops import (
     MaxPool2d,
@@ -71,23 +76,16 @@ from tpuseg_torch.train.optim import make_optimizer
 from tpuseg_torch.train.step import make_train_step
 
 
-def band(t: torch.Tensor, bands, dim: int = 2) -> torch.Tensor:
-    """This rank's band of whole tensor ``t`` (rows along ``dim``), in
-    ``t``'s memory format."""
-    h = t.shape[dim] // bands.size
-    return t.narrow(dim, bands.index * h, h).contiguous(
-        memory_format=spatial.memory_format(t))
-
-
 def _grad_case(fn, xs, dy, bands, whole_out=False):
     """``fn`` on this rank's bands of ``xs`` with ``sum(y * dy)``'s
-    backward, ``dy`` this rank's band of the upstream gradient (the whole
-    of it for a ``whole_out`` function): the output and the inputs'
-    gradients, and whether the output is channels_last."""
-    xs = [band(x, bands).requires_grad_() for x in xs]
+    backward, ``dy`` this rank's band of the upstream gradient (zeros on
+    its padding rows; the whole of it for a ``whole_out`` function): the
+    output and the inputs' gradients, and whether the output is
+    channels_last."""
     with spatial.sharded(bands):
+        xs = [spatial.band(x, 2).requires_grad_() for x in xs]
         y = fn(*xs)
-        (y * (dy if whole_out else band(dy, bands))).sum().backward()
+        (y * (dy if whole_out else spatial.band(dy, 2))).sum().backward()
     return {"y": y.detach(), "grads": [x.grad for x in xs],
             "channels_last": spatial.memory_format(y) == torch.channels_last}
 
@@ -101,9 +99,11 @@ def _conv_case(case, bands):
 
 
 def _head_case(case, bands):
-    """ASPP or DPC in train mode on this rank's band: the output, the
-    input's and the parameters' gradients and the BN running statistics."""
-    head = (ASPP if case["kind"] == "aspp" else DPC)(*case["args"])
+    """ASPP, DPC or batch norm in train mode on this rank's band: the
+    output, the input's and the parameters' gradients and the BN running
+    statistics."""
+    head = {"aspp": ASPP, "dpc": DPC, "norm": Norm}[case["kind"]](
+        *case["args"])
     head.load_state_dict(case["state"])
     head.train()
     out = _grad_case(head, [case["x"]], case["dy"], bands)
@@ -138,11 +138,12 @@ def ops(inp, bands):
                                     bands, whole_out=True)
     for name, case in inp["head"].items():
         res["head"][name] = _head_case(case, bands)
+    res["norm"] = _head_case(inp["norm"], bands)
     for name, case in inp["rmi_pool"].items():
         with spatial.sharded(bands):
             oh, pr, n_rows = rmi_mod._pooled(
-                band(case["onehot"], bands), band(case["probs"], bands),
-                4, case["way"], 3)
+                spatial.band(case["onehot"], 2),
+                spatial.band(case["probs"], 2), 4, case["way"], 3)
         res["rmi_pool"][name] = {"onehot": oh, "probs": pr,
                                  "n_rows": n_rows}
     g = inp["gather"]
@@ -150,9 +151,13 @@ def ops(inp, bands):
                                g["dctx"], bands, whole_out=True)
     for name, case in inp["loss"].items():
         criterion, _ = get_loss(make_config(case["sets"]))
-        logits = band(case["logits"], bands, 1).requires_grad_()
+        target = case["target"]
         with spatial.sharded(bands):
-            loss = criterion(logits, band(case["target"], bands, 1))
+            logits = spatial.band(case["logits"]).requires_grad_()
+            # a multi-hot target's padding pixels have no class (as
+            # shard_batch_spatial pads them), a label's are ignored
+            loss = criterion(logits, spatial.band(
+                target, fill=0 if target.dim() == 4 else 255))
             loss.backward()
         res["loss"][name] = {"loss": loss.detach(), "grad": logits.grad}
     return res
@@ -174,10 +179,10 @@ def train_step(inp, sets, mesh):
                            supervised_mscale_wt=lc.supervised_mscale_wt)
     per_dp = inp["image"].shape[0] // mesh.dp
     rows = slice(mesh.dp_index * per_dp, (mesh.dp_index + 1) * per_dp)
-    batch = shard_batch_spatial(mesh, {"image": inp["image"][rows],
-                                       "label": inp["label"][rows]})
-    batch = {k: torch.from_numpy(v.copy()) for k, v in batch.items()}
     with spatial.sharded(mesh.bands):
+        batch = shard_batch_spatial(mesh, {"image": inp["image"][rows],
+                                           "label": inp["label"][rows]})
+        batch = {k: torch.from_numpy(v.copy()) for k, v in batch.items()}
         loss = step(net, opt, batch, 0)["loss"]
     return {"loss": loss,
             "state": {k: v.detach().clone()
@@ -210,7 +215,8 @@ def condition(model, seed: int = 0) -> None:
 
 def zoo_model(case):
     """``case``'s factory at full width, or its factory's class on a tiny
-    trunk (``case["tiny"]``: module, class, trunk), in train mode; for
+    trunk (``case["tiny"]``: module, class, trunk; the class's keywords
+    in ``case["kw"]``), in train mode; for
     ``tpuseg``'s weights (``case["state"]``) with its ``Dropout2d`` at
     p = 0 (``tpuseg`` draws its masks from one key, which no band can
     draw)."""
@@ -218,7 +224,8 @@ def zoo_model(case):
         module, cls, trunk = case["tiny"]
         model = getattr(importlib.import_module(
             f"tpuseg_torch.models.{module}"), cls)(
-                19, trunk=trunk, dtype=torch.float32).train()
+                19, trunk=trunk, dtype=torch.float32,
+                **case.get("kw", {})).train()
     else:
         model = get_model(make_config(case["sets"])).train()
     if case.get("state") is not None:
@@ -267,13 +274,13 @@ def zoo_step(case, model, mesh=None, moved: bool = False):
     lc = cfg.loss
     step = make_train_step(criterion, schedule, ocr_alpha=lc.ocr_alpha,
                            supervised_mscale_wt=lc.supervised_mscale_wt)
-    batch = {k: case[k] for k in ("image", "label")}
-    if mesh is not None:
-        batch = shard_batch_spatial(mesh, batch)
-    batch = {k: torch.from_numpy(v.copy()) for k, v in batch.items()}
     spatial.reset_counts()
     torch.manual_seed(ZOO_SEED)
     with spatial.sharded(None if mesh is None else mesh.bands):
+        batch = {k: case[k] for k in ("image", "label")}
+        if mesh is not None:
+            batch = shard_batch_spatial(mesh, batch)
+        batch = {k: torch.from_numpy(v.copy()) for k, v in batch.items()}
         loss = float(step(net, opt, batch, 0)["loss"])
     return {"loss": loss, "counts": dict(spatial.COUNTS),
             "grads": {n: p.grad for n, p in model.named_parameters()},
@@ -300,18 +307,18 @@ def zoo(inp, mesh):
     the whole image's step (its loss, and its gradients, parameters and
     BN statistics against the band's) and the f32 floor, the same step
     with every weight moved by one f32 rounding."""
-    rank = process_index()
-    res = {"sums": {}, "counts": {}, "loss": {}}
+    rank, world = process_index(), process_count()
+    res = {"sums": {}, "counts": {}, "loss": {}, "jax": {}}
     mine = {}
     for i, (name, case) in enumerate(inp["zoo"].items()):
         model = zoo_model(case)
         r = zoo_step(case, model, mesh)
         res["sums"][name] = _checksums(r)
         res["counts"][name], res["loss"][name] = r["counts"], r["loss"]
-        if name == inp["jax_case"]:
-            res["jax_case"] = {"loss": r["loss"],
-                               "state": {**r["params"], **r["stats"]}}
-        elif i % 2 == rank:
+        if name in inp.get("jax_cases", ()):
+            res["jax"][name] = {"loss": r["loss"],
+                                "state": {**r["params"], **r["stats"]}}
+        if name in inp.get("one_cases", inp["zoo"]) and i % world == rank:
             mine[name] = model, r
     dist.destroy_process_group()  # one process from here on
     res["gaps"] = {}
@@ -376,11 +383,11 @@ def main():
                                   "inputs.pt"), weights_only=False)
     res = {"world": process_count()}
     if mode == "ops":
-        res.update(ops(inp, make_mesh(2).bands))
+        res.update(ops(inp, make_mesh(process_count()).bands))
     elif mode == "halo":
         res.update(halo(inp, make_mesh(4).bands))
     elif mode == "zoo":
-        res.update(zoo(inp, make_mesh(2)))
+        res.update(zoo(inp, make_mesh(process_count())))
     elif mode == "grid":
         res["step"] = train_step(inp, inp["step_sets"]["ce"], make_mesh(2))
     else:

@@ -20,6 +20,7 @@ parameters after one SGD step and the BN statistics within L1-rel 2e-5.
 Dropout is off (``model.ocr.dropout: 0``): the port seeds its masks per dp
 group and tpuseg draws them from one key, so no mask can match.
 """
+import math
 import os
 import pickle
 import re
@@ -272,21 +273,23 @@ def test_bands_share_the_mask_seed(cluster):
 
 @pytest.mark.parametrize("sets, error, match", [
     ({"dataset.crop_size": (64, 64)}, ValueError,
-     r"crop_size \(64, 64\).*model_parallelism=2.*multiple of 128"),
+     r"crop_size \(64, 64\) is too small for mesh.model_parallelism=2: "
+     r"ocrnet.HRNet_Mscale_Tiny's 0.5x pass's stride-32 feature maps have "
+     r"1 row, fewer than the 2 bands; the crop height must be at least 128"),
     ({"model.arch": "deepv3.DeepV3PlusW38Tiny",
       "dataset.crop_size": (72, 64)}, ValueError,
-     r"crop_size \(72, 64\).*deepv3.DeepV3PlusW38Tiny's 1.0x pass's "
-     r"stride-8 feature maps have 9 rows.*multiple of 16"),
+     r"model_parallelism=2 must divide the number of ranks \(1\)"),
     ({}, ValueError, r"model_parallelism=2 must divide the number of "
                      r"ranks \(1\)"),
 ], ids=["uneven_crop", "arch", "world"])
 def test_trainer_refuses(tmp_path, sets, error, match):
     """``Trainer`` refuses, before any data or model setup, a crop whose
-    0.5x feature maps would not split into equal bands (tpuseg refuses
-    the same crop at sp 2, tests/test_spatial_sharding.py:190-204), a
-    crop whose maps at the arch's own deepest stride would not (8 on the
-    DeepLab trunks: 72 rows give 9), and ranks that do not form whole sp
-    groups."""
+    0.5x pass's deepest maps have fewer rows than the sp group has ranks
+    (64 rows give one stride-32 row at 0.5x: tpuseg refuses the same crop
+    at sp 2, 64 // 2 // 32 = 1, tests/test_spatial_sharding.py:190-204),
+    and ranks that do not form whole sp groups. The ``arch`` case's crop,
+    72 rows on DeepV3PlusW38Tiny, splits unevenly (9 stride-8 rows, 5 + 4
+    over 2 bands) and is admitted: the one refusal left is the world's."""
     cfg = make_config({"model.arch": "ocrnet.HRNet_Mscale_Tiny",
                        "dataset.name": "synthetic",
                        "dataset.crop_size": (128, 64),
@@ -300,57 +303,87 @@ def test_trainer_refuses(tmp_path, sets, error, match):
     ("deepv3.DeepV3PlusW38Tiny", (48, 32), 2),
     ("recipe", None, 2),
     ("recipe", None, 4),
+    ("deepv3.DeepV3PlusW38Tiny", (72, 64), 2),
+    ("recipe", None, 3),
+    ("recipe", None, 8),
+    ("w48_recipe", None, 3),
 ], ids=["w38tiny_80", "w38tiny_48", "deepv3_recipe_sp2",
-        "deepv3_recipe_sp4"])
+        "deepv3_recipe_sp4", "w38tiny_72", "deepv3_recipe_sp3",
+        "deepv3_recipe_sp8", "w48_recipe_sp3"])
 def test_check_spatial_admits(arch, crop, sp):
-    """Crops the old guard refused (the crop height a multiple of 64 * sp
-    for every arch), whose maps split evenly at the arch's own deepest
-    stride: DeepV3PlusW38Tiny at multiples of 16 but not 64, and
+    """Crops the guard of equal bands refused: DeepV3PlusW38Tiny at
+    multiples of 16 but not 64, and at 72 rows (9 stride-8 rows: 5 + 4);
     ``train_cityscapes_deepv3.yaml`` as shipped (800x800, stride 8: 100
-    rows) at sp 2 and 4."""
-    if arch == "recipe":
-        cfg = load_config(DEEPV3_RECIPE, [f"mesh.model_parallelism={sp}"])
+    rows) at sp 2, 3, 4 and 8; ``train_cityscapes.yaml`` (W48, 1024
+    rows: 16 stride-32 rows at the 0.5x pass) at sp 3. tpuseg admits
+    each of them too."""
+    if arch in ("recipe", "w48_recipe"):
+        recipe = DEEPV3_RECIPE if arch == "recipe" else RECIPE
+        cfg = load_config(recipe, [f"mesh.model_parallelism={sp}"])
     else:
         cfg = make_config({"model.arch": arch, "dataset.crop_size": crop,
                            "mesh.model_parallelism": sp})
     check_spatial(cfg, sp)
 
 
+def _rule_rows(sets: dict) -> int:
+    """The crop height per band that ``check_spatial``'s rule asks for:
+    the arch's deepest stride over its lowest train scale."""
+    cfg = make_config(sets)
+    stride, scales = band_geometry(cfg)
+    lo = min({1.0, *scales}
+             | ({cfg.model.mscale_lo_scale} if infer_mscale(cfg) else set()))
+    return stride / lo
+
+
+def _assert_rule(sets: dict) -> None:
+    """At sp 2, 3 and 4: the smallest crop whose deepest map at the
+    lowest train scale has sp rows is admitted, a row less is refused, and
+    the crops past it that split unevenly are admitted."""
+    unit = _rule_rows(sets)
+    for sp in (2, 3, 4):
+        cfg = lambda rows: make_config({  # noqa: E731
+            **sets, "dataset.crop_size": (rows, 64),
+            "mesh.model_parallelism": sp})
+        least = math.ceil(sp * unit)
+        for rows in (least, least + 1, least + int(unit) + 3):
+            check_spatial(cfg(rows), sp)
+        with pytest.raises(ValueError, match="too small"):
+            check_spatial(cfg(least - 1), sp)
+
+
 @pytest.mark.parametrize("arch", sorted(
     f"{m}.{f}" for m, fs in PORTED.items() for f in fs))
 def test_check_spatial_every_arch(arch):
-    """Every arch of the port runs on bands: ``check_spatial`` admits it at
-    sp 2 at the smallest crop whose maps split evenly (its deepest stride
-    over its lowest train scale, times 2) and refuses that crop plus 8
-    rows, and at sp 4 refuses it only where the maps cannot split (the
-    plain attention head of attnscale's ASDV3P grows its maps by 2
-    rows)."""
-    stride = band_geometry(make_config({"model.arch": arch}))[0]
-    lo = 0.5 if infer_mscale(make_config({"model.arch": arch})) else 1.0
-    h = int(stride / lo) * 4
-    cfg = lambda rows, sp: make_config({  # noqa: E731
-        "model.arch": arch, "dataset.crop_size": (rows, 64),
-        "mesh.model_parallelism": sp})
-    check_spatial(cfg(h // 2, 2), 2)
-    with pytest.raises(ValueError, match="cannot be split"):
-        check_spatial(cfg(h // 2 + 8, 2), 2)
-    if arch in ("attnscale.DeepV3R50", "attnscale.DeepV3W38"):
-        with pytest.raises(ValueError, match="2 rows taller"):
-            check_spatial(cfg(h, 4), 4)
-    else:
-        check_spatial(cfg(h, 4), 4)
+    """Every arch of the port runs on bands under one rule,
+    ``floor(crop_h * s_min / stride) >= sp``: at sp 2, 3 and 4 the crop
+    just under it is refused, and every crop from it on is admitted,
+    those whose maps split unevenly too (the guard of equal bands
+    refused them, and the plain attention head of attnscale's ASDV3P,
+    whose maps are 2 rows taller, at every sp above 2). On HRNet_Mscale
+    the rule is tpuseg's guard, ``crop_h // 2 // 32 >= sp``."""
+    _assert_rule({"model.arch": arch})
+    if arch == "ocrnet.HRNet_Mscale":
+        for rows in range(120, 600, 7):
+            for sp in (2, 3, 4):
+                cfg = make_config({"model.arch": arch,
+                                   "dataset.crop_size": (rows, 64),
+                                   "mesh.model_parallelism": sp})
+                admitted = rows // 2 // 32 >= sp
+                if admitted:
+                    check_spatial(cfg, sp)
+                else:
+                    with pytest.raises(ValueError, match="too small"):
+                        check_spatial(cfg, sp)
 
 
-def test_check_spatial_refuses_old_arch_two_channel_head():
+def test_check_spatial_admits_old_arch_two_channel_head():
     """mscale's ``attn_2b`` head in the old arch is a 2x2 conv with no
     padding: its map is a row shorter than its input, which no number of
-    bands splits evenly."""
-    cfg = make_config({"model.arch": "mscale.DeepV3W38Fuse2",
-                       "model.mscale_old_arch": True,
-                       "dataset.crop_size": (64, 64),
-                       "mesh.model_parallelism": 2})
-    with pytest.raises(ValueError, match="1 row shorter"):
-        check_spatial(cfg, 2)
+    equal bands splits, and is padded like any other map now. The rule
+    holds for it at sp 2, 3 and 4."""
+    _assert_rule({"model.arch": "mscale.DeepV3W38Fuse2",
+                  "model.mscale_old_arch": True})
 
 
 def test_children_import_no_jax(cluster):

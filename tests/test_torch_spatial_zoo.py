@@ -137,7 +137,8 @@ def cluster(tmp_path_factory):
     with open(out / "jax_inputs.pkl", "wb") as f:
         pickle.dump({"variables": variables, "image": image, "label": label,
                      "step_sets": {"ce": JAX_SETS}}, f)
-    torch.save({"zoo": zoo, "jax_case": JAX_ARCH}, out / "zoo_inputs.pt")
+    torch.save({"zoo": zoo, "jax_cases": [JAX_ARCH],
+                "one_cases": list(ZOO) + list(TINY)}, out / "zoo_inputs.pt")
     procs = [subprocess.Popen(
         [sys.executable, JAX_STEP, str(out), "ce"], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True, cwd=REPO)]
@@ -198,7 +199,7 @@ def test_sp_step_matches_tpuseg_sharded_step(cluster):
     height sharded over a 2-device ``model`` axis: loss, and each rank's
     parameters and BN statistics after the step."""
     want = cluster["jax"]
-    ranks = [r["jax_case"] for r in cluster["ranks"]]
+    ranks = [r["jax"][JAX_ARCH] for r in cluster["ranks"]]
     loss = sum(r["loss"] for r in ranks) / 2
     assert abs(loss - want["loss"]) <= TOL["loss"] * abs(want["loss"]), (
         loss, want["loss"])

@@ -25,7 +25,10 @@ as data-parallel ranks, rank 0 the primary:
 
 With ``--set mesh.model_parallelism=N`` the ranks train as dp x sp: each
 group of N consecutive ranks splits every image's rows into N bands
-(``parallel/spatial.py``).
+(``parallel/spatial.py``), padded where a map's rows do not split evenly.
+Any crop trains whose deepest feature map at the lowest train scale has at
+least N rows (``train.loop.check_spatial``): ``crop_h // 64 >= N`` on the
+HRNet-OCR recipe, ``crop_h // 8 >= N`` on the DeepLab trunks at 1.0x.
 """
 from __future__ import annotations
 

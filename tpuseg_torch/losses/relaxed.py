@@ -85,7 +85,9 @@ def relaxed_soft_nll(logits: torch.Tensor, relaxed_target: torch.Tensor,
     loss_matrix = (-1.0 / border_weights) * weighted * (~ignore_mask)
 
     # per-image normalisation by the non-ignored pixel count (+1 against a
-    # division by 0, reference: loss/utils.py:200-205), summed over the batch
+    # division by 0, reference: loss/utils.py:200-205), summed over the
+    # batch; on bands h counts a band's padding rows, whose targets are
+    # empty (ignored), so the count is the image's true one
     h, w = logits.shape[1:3]
     denom = spatial.band_sum(h * w - ignore_mask.sum(dim=(1, 2))) + 1.0
     return (loss_matrix.sum(dim=(1, 2)) / denom).sum() * world

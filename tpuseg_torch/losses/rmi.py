@@ -28,9 +28,12 @@ the band holding its window's first row (the top band also takes the
 window that starts in the padding); each neighbourhood vector to the
 band of its first pooled row. A band pools the input rows those vectors
 read, halo included, so the pooled rows next to a boundary are computed
-from the same pixels as in one process. The means and the three 9x9
-covariances are sums over the sp group, and the Cholesky chain then runs
-alike on every rank of the group (``spatial``'s gradient convention).
+from the same pixels as in one process. The ownership and the rows of
+vectors count the image's true rows: a band's padding rows read as the
+pool's padding past the image's bottom edge (zeros, -inf for the max
+pool). The means and the three 9x9 covariances are sums over the sp
+group, and the Cholesky chain then runs alike on every rank of the group
+(``spatial``'s gradient convention).
 """
 from __future__ import annotations
 
@@ -71,7 +74,7 @@ def _pooled(onehot: torch.Tensor, probs: torch.Tensor, pool_size: int,
         return onehot, probs, onehot.shape[2] - radius + 1
     k = max(pool_size, 1)
     h = onehot.shape[2]
-    total = h * bands.size
+    total = spatial.global_height(onehot)
     n_rows = spatial.window_rows(total, k, k, pad) - radius + 1
 
     def owner(i):  # the band of pooled row i's first input row

@@ -33,16 +33,15 @@ PORTED = {
 
 
 def band_geometry(cfg) -> tuple:
-    """-> (the stride of ``cfg.model.arch``'s deepest feature map, the rows
-    its head adds to a map, the scales besides 1.0 and the two-scale pass
-    that a train step runs it at), from the ``band_geometry`` of the arch's
-    module, which reads its factory table: 32 on HRNetV2 (its lowest
-    branch), 8 on the DeepLab trunks (output stride 8,
-    ``trunks.get_trunk``). Builds nothing."""
+    """-> (the stride of ``cfg.model.arch``'s deepest feature map, the
+    scales besides 1.0 and the two-scale pass that a train step runs it
+    at), from the ``band_geometry`` of the arch's module, which reads its
+    factory table: 32 on HRNetV2 (its lowest branch), 8 on the DeepLab
+    trunks (output stride 8, ``trunks.get_trunk``). Builds nothing."""
     module_name, fn_name = cfg.model.arch.split(".")
     mod = importlib.import_module(f"tpuseg_torch.models.{module_name}")
-    trunk, rows, scales = mod.band_geometry(fn_name, cfg)
-    return (32 if trunk.startswith("hrnetv2") else 8), rows, scales
+    trunk, scales = mod.band_geometry(fn_name, cfg)
+    return (32 if trunk.startswith("hrnetv2") else 8), scales
 
 
 def get_model(cfg, seed: int = 0) -> torch.nn.Module:

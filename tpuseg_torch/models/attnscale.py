@@ -151,15 +151,12 @@ FACTORIES = {"DeepV3R50": (ASDV3P, "resnet-50", None),
 
 
 def band_geometry(name: str, cfg) -> tuple:
-    """-> (trunk, rows the head adds to a map, train scales besides 1.0 and
-    the two-scale pass) of factory ``name`` (``models.band_geometry``): the
-    plain attention head (a 1x1 conv with padding 1) is 2 rows taller, and
-    a step runs every scale of ``model.n_scales`` (``eval.scales`` where
-    unset, as ``eval_model_config`` builds it; the paired model trains at
-    two of them)."""
-    _, trunk, bn_head = FACTORIES[name]
-    rows = 0 if bn_head or cfg.model.attnscale_bn_head else 2
-    return trunk, rows, tuple(cfg.model.n_scales or cfg.eval.scales)
+    """-> (trunk, train scales besides 1.0 and the two-scale pass) of
+    factory ``name`` (``models.band_geometry``): a step runs every scale of
+    ``model.n_scales`` (``eval.scales`` where unset, as
+    ``eval_model_config`` builds it; the paired model trains at two of
+    them)."""
+    return FACTORIES[name][1], tuple(cfg.model.n_scales or cfg.eval.scales)
 
 
 def DeepV3R50(cfg):

@@ -85,9 +85,9 @@ FACTORIES = {"HRNet": (Basic, "hrnetv2"),
 
 
 def band_geometry(name: str, cfg) -> tuple:
-    """-> (trunk, rows the head adds to a map, train scales besides 1.0 and
-    the two-scale pass) of factory ``name`` (``models.band_geometry``)."""
-    return FACTORIES[name][1], 0, ()
+    """-> (trunk, train scales besides 1.0 and the two-scale pass) of
+    factory ``name`` (``models.band_geometry``)."""
+    return FACTORIES[name][1], ()
 
 
 def HRNet(cfg):

@@ -69,9 +69,9 @@ FACTORIES = {"DeeperW38": (DeeperS8, "wrn38"),
 
 
 def band_geometry(name: str, cfg) -> tuple:
-    """-> (trunk, rows the head adds to a map, train scales besides 1.0 and
-    the two-scale pass) of factory ``name`` (``models.band_geometry``)."""
-    return FACTORIES[name][1], 0, ()
+    """-> (trunk, train scales besides 1.0 and the two-scale pass) of
+    factory ``name`` (``models.band_geometry``)."""
+    return FACTORIES[name][1], ()
 
 
 def DeeperW38(cfg):

@@ -113,9 +113,9 @@ TRUNKS = {
 
 
 def band_geometry(name: str, cfg) -> tuple:
-    """-> (trunk, rows the head adds to a map, train scales besides 1.0 and
-    the two-scale pass) of factory ``name`` (``models.band_geometry``)."""
-    return TRUNKS[name], 0, ()
+    """-> (trunk, train scales besides 1.0 and the two-scale pass) of
+    factory ``name`` (``models.band_geometry``)."""
+    return TRUNKS[name], ()
 
 
 def _plus(factory):

@@ -26,10 +26,14 @@ tensors, and ``convert_sync_batchnorm`` would replace this class.
 
 Under dp x sp (``parallel/spatial.py``) each rank holds a band of every
 image: ``Conv2d`` then fetches the halo rows its output band reads from the
-neighbouring bands and convolves with no H padding, and batch norm's
-global statistics already cover every pixel once. The OCR block's class
-proxies are the same on every rank of an sp group (``spatial.replicated``):
-there batch norm counts each value once for Bessel's factor.
+neighbouring bands and convolves with no H padding (a 1x1 conv reads no
+other row, and runs on the band's padding rows too: whatever it makes
+there, every consumer leaves out), and batch norm's global statistics
+cover every true pixel once: its sums, count and backward sums leave out
+a band's padding rows (``spatial.valid_rows``), which it sets to zero.
+The OCR block's class proxies are the same on every rank of an sp group
+(``spatial.replicated``): there batch norm counts each value once for
+Bessel's factor.
 """
 from __future__ import annotations
 
@@ -84,26 +88,34 @@ class _GlobalBatchNorm(torch.autograd.Function):
     per-channel sums of ``dy`` and ``dy * xhat``, so each rank's input
     gradient is that of every rank's loss (nn.SyncBatchNorm's scheme);
     the weight and bias gradients stay local for DDP to average. Saves the
-    input in its own dtype. Returns (y, mean, var, count)."""
+    input in its own dtype. On a band with padding rows (``valid`` true
+    rows of its H, a prefix), every sum covers the true rows only, and
+    the output and the input gradient are zero on the padding rows.
+    Returns (y, mean, var, count)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, eps, valid=None):
         c = x.shape[1]
         view = (1, c, 1, 1)
         xf = x.float()
-        stats = torch.cat([xf.sum(dim=(0, 2, 3)),
-                           xf.new_full((1,), x.numel() // c)])
+        xt = xf if valid is None else xf.narrow(2, 0, valid)
+        stats = torch.cat([xt.sum(dim=(0, 2, 3)),
+                           xf.new_full((1,), xt.numel() // c)])
         dist.all_reduce(stats)
         n = stats[c]
         mean = stats[:c] / n
         xc = xf - mean.view(view)
-        sq = (xc * xc).sum(dim=(0, 2, 3))
+        xct = xc if valid is None else xc.narrow(2, 0, valid)
+        sq = (xct * xct).sum(dim=(0, 2, 3))
         dist.all_reduce(sq)
         var = sq / n
         invstd = torch.rsqrt(var + eps)
         y = xc * invstd.view(view)
         if weight is not None:
             y = y * weight.view(view) + bias.view(view)
+        if valid is not None:
+            y.narrow(2, valid, y.shape[2] - valid).zero_()
+        ctx.valid = valid
         ctx.save_for_backward(x, weight, mean, invstd, n)
         ctx.mark_non_differentiable(mean, var, n)
         return y.to(x.dtype), mean, var, n
@@ -111,20 +123,25 @@ class _GlobalBatchNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, *_):
         x, weight, mean, invstd, n = ctx.saved_tensors
+        valid = ctx.valid
         c = x.shape[1]
         view = (1, c, 1, 1)
         dyf = dy.float()
         xhat = (x.float() - mean.view(view)) * invstd.view(view)
-        local = torch.cat([dyf.sum(dim=(0, 2, 3)),
-                           (dyf * xhat).sum(dim=(0, 2, 3))])
+        dyt, xht = ((dyf, xhat) if valid is None else
+                    (dyf.narrow(2, 0, valid), xhat.narrow(2, 0, valid)))
+        local = torch.cat([dyt.sum(dim=(0, 2, 3)),
+                           (dyt * xht).sum(dim=(0, 2, 3))])
         total = local.clone()
         dist.all_reduce(total)
         scale = invstd if weight is None else invstd * weight
         dx = (dyf - (total[:c] / n).view(view)
               - xhat * (total[c:] / n).view(view)) * scale.view(view)
+        if valid is not None:
+            dx.narrow(2, valid, dx.shape[2] - valid).zero_()
         if weight is None:
-            return dx.to(x.dtype), None, None, None
-        return dx.to(x.dtype), local[c:], local[:c], None
+            return dx.to(x.dtype), None, None, None, None
+        return dx.to(x.dtype), local[c:], local[:c], None, None
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -145,9 +162,12 @@ class BatchNorm2d(nn.BatchNorm2d):
         ``_single_value``'s result (mean = x, variance 0). The running
         variance takes Bessel's factor ``n / max(n - 1, 1)`` of the global
         count ``n``, each value held alike by the ranks of an sp group
-        (``spatial.replicated``) counted once."""
-        y, mean, var, n = _GlobalBatchNorm.apply(x, self.weight, self.bias,
-                                                 self.eps)
+        (``spatial.replicated``) counted once, and a band's padding rows
+        not at all."""
+        valid = spatial.valid_rows(x)
+        y, mean, var, n = _GlobalBatchNorm.apply(
+            x, self.weight, self.bias, self.eps,
+            None if valid == x.shape[2] else valid)
         # a tensor held alike by every rank of an sp group counts once
         n = n / spatial.replicas()
         if self.track_running_stats:

@@ -255,12 +255,9 @@ FACTORIES = {
 
 
 def band_geometry(name: str, cfg) -> tuple:
-    """-> (trunk, rows the head adds to a map, train scales besides 1.0 and
-    the two-scale pass) of factory ``name`` (``models.band_geometry``):
-    ``attn_2b``'s old-arch 2-channel head is a 2x2 conv, a row shorter."""
-    _, trunk, fixed = FACTORIES[name]
-    return trunk, -int(bool(fixed.get("attn_2b"))
-                       and cfg.model.mscale_old_arch), ()
+    """-> (trunk, train scales besides 1.0 and the two-scale pass) of
+    factory ``name`` (``models.band_geometry``)."""
+    return FACTORIES[name][1], ()
 
 
 def _factory(name):

@@ -166,9 +166,9 @@ FACTORIES = {"DeepV3R50": (MscaleV3Plus2, "resnet-50"),
 
 
 def band_geometry(name: str, cfg) -> tuple:
-    """-> (trunk, rows the head adds to a map, train scales besides 1.0 and
-    the two-scale pass) of factory ``name`` (``models.band_geometry``)."""
-    return FACTORIES[name][1], 0, ()
+    """-> (trunk, train scales besides 1.0 and the two-scale pass) of
+    factory ``name`` (``models.band_geometry``)."""
+    return FACTORIES[name][1], ()
 
 
 def DeepV3R50(cfg):

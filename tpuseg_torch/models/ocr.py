@@ -13,7 +13,9 @@ On bands (dp x sp, ``parallel/spatial.py``) the gather's softmax runs over
 every pixel of the image: its max, its normaliser and the class context
 are sums (a max) over the sp group, and the class proxies are then the
 same on every rank of the group (``spatial.replicated``), so the
-distribute step is band-local.
+distribute step is band-local. A band's padding rows take logit -inf in
+the gather: they leave the softmax over the image's pixels and the class
+sums, and get no gradient.
 
 Softmaxes run in f32. Module names are the reference's
 (``ocr_distri_head.object_context_block.f_pixel.{0,1.0,2,3.0}``, ...).
@@ -53,6 +55,11 @@ def spatial_gather(feats: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
         p = torch.softmax(logits, dim=-1)
         ctx = torch.bmm(p.to(feats.dtype).float(), f.float())
         return ctx.to(feats.dtype)
+    v = spatial.valid_rows(probs)
+    if v < probs.shape[2]:
+        pixel = torch.arange(logits.shape[-1], device=logits.device)
+        logits = logits.masked_fill(pixel >= v * probs.shape[3],
+                                    float("-inf"))
     # the softmax over the whole image's pixels: the max shifts without a
     # gradient (the softmax does not depend on it)
     e = torch.exp(logits - spatial.band_max(logits.amax(-1, keepdim=True)))

@@ -159,10 +159,10 @@ def _common(cfg):
 
 
 def band_geometry(name: str, cfg) -> tuple:
-    """-> (trunk, rows the head adds to a map, train scales besides 1.0 and
-    the two-scale pass) of factory ``name`` (``models.band_geometry``):
+    """-> (trunk, train scales besides 1.0 and the two-scale pass) of
+    factory ``name`` (``models.band_geometry``):
     every factory here is HRNetV2 under an OCR head."""
-    return "hrnetv2", 0, ()
+    return "hrnetv2", ()
 
 
 def HRNet(cfg):

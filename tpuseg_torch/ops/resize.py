@@ -37,8 +37,10 @@ image's top and bottom, and a band reads the rows it needs past its edges
 from its neighbours. ``F.interpolate`` on a bare band would clamp at the
 band's edges, and so be wrong on exactly the rows next to a band boundary.
 Pool windows sit on the global grid the same way, and a global average
-pool takes the image's mean: the bands' sums summed over the group, over
-the image's pixel count.
+pool takes the image's mean: the bands' sums of their true rows summed
+over the group, over the image's pixel count. Sizes are true sizes: on
+an uneven split a band ends in padding rows (``spatial``'s layout), which
+a max pool's output keeps at zero rather than at its -inf fill.
 """
 from __future__ import annotations
 
@@ -106,8 +108,8 @@ def max_pool2d(x: torch.Tensor, window: int, stride: int | None = None,
     stem, reference SEresnext.py:269-272)."""
     y, pad = _band_rows(x, window, stride or window, padding, float("-inf"),
                         ceil_mode)
-    return F.max_pool2d(y, window, stride or window, pad,
-                        ceil_mode=ceil_mode)
+    return spatial.zero_padding(F.max_pool2d(y, window, stride or window,
+                                             pad, ceil_mode=ceil_mode))
 
 
 class MaxPool2d(nn.Module):
@@ -134,30 +136,33 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     if spatial.active() is None:
         return x.mean(dim=(2, 3), keepdim=True)
     h, w = spatial.global_size(x)
-    s = spatial.band_sum(x.float().sum(dim=(2, 3), keepdim=True))
+    rows = x.narrow(2, 0, spatial.valid_rows(x))
+    s = spatial.band_sum(rows.float().sum(dim=(2, 3), keepdim=True))
     return (s / (h * w)).to(x.dtype)
 
 
 def _band_rows(x: torch.Tensor, window: int, stride: int, padding: int,
                fill: float, ceil_mode: bool = False):
     """-> (the rows a pool of ``x`` reads, its padding): on bands, the
-    band's windows on the global grid, rows past the image's edges
+    band's windows on the global grid, rows past the image's true edges
     ``fill`` (the pool's own padding value) and no H padding; otherwise
     ``x`` and ``padding``."""
     bands = spatial.active()
     if bands is None:
         return x, padding
     h_in = spatial.global_height(x)
-    h_out = spatial.split_rows(
-        spatial.window_rows(h_in, window, stride, padding,
-                            ceil_mode=ceil_mode), bands, "pool output")
-    needs = spatial.window_needs(h_out, bands, window, stride, padding)
-    y = spatial.gather_rows(x, needs)
-    lo, hi = needs[bands.index]
-    if fill and (lo < 0 or hi > h_in):
+    total = spatial.window_rows(h_in, window, stride, padding,
+                                ceil_mode=ceil_mode)
+    h_out = spatial.split_rows(total)
+    needs = spatial.window_needs(h_out, bands, window, stride, padding,
+                                 total=total)
+    size = (h_out - 1) * stride + window
+    y = spatial.gather_rows(x, needs, size=size)
+    lo = needs[bands.index][0]
+    if fill and (lo < 0 or lo + size > h_in):
         # masked_fill's broadcast mask would leave the band NCHW: an edge
         # band keeps the format its neighbours keep
-        rows = torch.arange(lo, hi, device=x.device).view(1, 1, -1, 1)
+        rows = torch.arange(lo, lo + size, device=x.device).view(1, 1, -1, 1)
         y = y.masked_fill((rows < 0) | (rows >= h_in), fill).contiguous(
             memory_format=spatial.memory_format(x))
     return y, (0, padding)

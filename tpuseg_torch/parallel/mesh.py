@@ -24,8 +24,9 @@ the ``world = dp * sp`` ranks as ``tpuseg``'s mesh reshapes its devices,
 ``(world // sp, sp)``, so an sp group is ``sp`` consecutive ranks with a
 process group of its own. The ranks of an sp group load the same images,
 and :func:`shard_batch_spatial` keeps this rank's band of rows (the
-counterpart of ``tpuseg``'s ``spatial_sharding`` layout); the ops then run
-on bands under ``spatial.sharded(mesh.bands)`` (``parallel/spatial.py``).
+counterpart of ``tpuseg``'s ``spatial_sharding`` layout, padded where the
+rows do not split evenly, as GSPMD pads); the ops then run on bands under
+``spatial.sharded(mesh.bands)`` (``parallel/spatial.py``).
 DDP and batch norm still reduce over the world group: every pixel of the
 global batch once.
 """
@@ -39,6 +40,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from tpuseg_torch.parallel import spatial
 from tpuseg_torch.parallel.spatial import Bands
 
 
@@ -177,18 +179,26 @@ def make_mesh(model_parallelism: int = 1) -> Mesh:
     return Mesh(dp=world // sp, dp_index=rank // sp, bands=bands)
 
 
-def shard_batch_spatial(mesh: Mesh, batch: dict) -> dict:
+def shard_batch_spatial(mesh: Mesh, batch: dict,
+                        ignore_label: int = 255) -> dict:
     """This rank's band of a host batch (``tpuseg``'s
-    ``shard_batch_spatial``): rows ``[i * H / sp, (i + 1) * H / sp)`` of
-    the NHWC image and the NHW[C] label; the batch itself when sp is 1."""
+    ``shard_batch_spatial``): of the NHWC image and the NHW label (or NHWC
+    multi-hot relaxed targets), rows ``[i * h, (i + 1) * h)`` with ``h =
+    ceil(H / sp)``, the rows past the crop's H padded as GSPMD pads an
+    uneven shard: zeros in the image, ``ignore_label`` in the label, and
+    no class (and no ignore flag: the pixel is not in the image's
+    histogram) in relaxed targets. Runs inside
+    ``spatial.sharded(mesh.bands)``, whose table of map heights takes the
+    crop's H. The batch itself when sp is 1."""
     if mesh.bands is None:
         return batch
+    if spatial.active() is not mesh.bands:
+        raise RuntimeError("shard_batch_spatial runs inside "
+                           "spatial.sharded(mesh.bands): the crop's height "
+                           "enters that context's table of map heights")
     out = dict(batch)
-    for key in ("image", "label"):
-        a = batch[key]
-        h = a.shape[1] // mesh.sp
-        if h * mesh.sp != a.shape[1]:
-            raise ValueError(f"{key} height {a.shape[1]} does not split "
-                             f"into {mesh.sp} equal bands")
-        out[key] = a[:, mesh.sp_index * h:(mesh.sp_index + 1) * h]
+    out["image"] = spatial.band(batch["image"])
+    label = batch["label"]
+    out["label"] = spatial.band(label, fill=0 if label.ndim == 4
+                                else ignore_label)
     return out

@@ -34,8 +34,10 @@ dp x sp (``mesh.model_parallelism = sp > 1``, ``parallel/mesh.py``): the
 ranks form a (dp, sp) grid of ``sp`` consecutive ranks a group; the ranks
 of a group load the same images (the train data is sharded over the dp
 groups) and each trains on its band of every image's rows
-(``shard_batch_spatial``, ``spatial.sharded``); DDP still averages over
-every rank. ``check_spatial`` refuses what uniform bands cannot hold.
+(``shard_batch_spatial``, ``spatial.sharded``), padded where the rows do
+not split evenly; DDP still averages over every rank. ``check_spatial``
+refuses a crop whose deepest map has fewer rows than the sp group has
+ranks, as ``tpuseg``'s guard does.
 Validation stays whole-image, the val split sharded over every rank, as
 ``tpuseg`` validates host-locally.
 """
@@ -94,43 +96,35 @@ def resolve_device(device: str) -> torch.device:
 
 
 def check_spatial(cfg: Config, world: int) -> None:
-    """Refuse a dp x sp run (``mesh.model_parallelism = sp > 1``) that
-    uniform bands cannot hold, before any model or data is built: every
-    feature map of every train scale (1.0, the two-scale pass's low scale,
-    and the arch's own, ``models.band_geometry``) must split into ``sp``
-    equal bands (the crop height at scale ``s`` a multiple of the arch's
-    deepest stride times ``sp``: 32 on the HRNetV2 trunk, 8 on the DeepLab
-    trunks), and so must an attention head's map that is taller or
-    shorter than its input (``sp`` must divide the rows it adds). The
-    ranks must form whole sp groups. ``tpuseg``'s own guard is for an XLA
-    gradient bug (``tpuseg/train/loop.py:64-86``) the port does not
-    have."""
+    """Refuse a dp x sp run (``mesh.model_parallelism = sp > 1``) before
+    any model or data is built unless its deepest feature map at its
+    lowest train scale has at least ``sp`` rows, ``floor(crop_h * s_min /
+    stride) >= sp``: the stride of the arch's deepest map (32 on the
+    HRNetV2 trunk, 8 on the DeepLab trunks) and the lowest of the scales
+    a train step runs (1.0, the two-scale pass's low scale and the arch's
+    own) from ``models.band_geometry``. On HRNetV2 at the two-scale pass's
+    0.5 this is ``tpuseg``'s own guard, ``crop_h // 2 // 32 >= sp``
+    (``tpuseg/train/loop.py:73-86``). Maps need not split evenly: the
+    bands are padded (``parallel/spatial.py``). The ranks must form whole
+    sp groups."""
     sp = cfg.mesh.model_parallelism
     if sp == 1:
         return
     crop = tuple(int(c) for c in cfg.dataset.crop_size)
-    arch = cfg.model.arch
-    stride, head_rows, own_scales = band_geometry(cfg)
+    stride, own_scales = band_geometry(cfg)
     scales = {1.0, *(float(s) for s in own_scales)}
     if infer_mscale(cfg):
         scales.add(float(cfg.model.mscale_lo_scale))
-    for s in sorted(scales):
-        rows = math.floor(crop[0] * s)
-        if rows % (stride * sp):
-            unit = int(round(stride / min(scales))) * sp
-            raise ValueError(
-                f"dataset.crop_size {crop} cannot be split into "
-                f"mesh.model_parallelism={sp} equal bands: {arch}'s {s}x "
-                f"pass's stride-{stride} feature maps have "
-                f"{rows / stride:g} rows, so the crop height must be a "
-                f"multiple of {unit}")
-    if head_rows % sp:
-        n = abs(head_rows)
+    s_min = min(scales)
+    rows = math.floor(crop[0] * s_min / stride)
+    if rows < sp:
+        need = math.ceil(sp * stride / s_min)
         raise ValueError(
-            f"mesh.model_parallelism={sp}: {arch}'s attention head makes "
-            f"maps {n} row{'s' * (n != 1)} "
-            f"{'taller' if head_rows > 0 else 'shorter'} than its input, "
-            f"which do not split into {sp} equal bands")
+            f"dataset.crop_size {crop} is too small for "
+            f"mesh.model_parallelism={sp}: {cfg.model.arch}'s {s_min:g}x "
+            f"pass's stride-{stride} feature maps have {rows} "
+            f"row{'s' * (rows != 1)}, fewer than the {sp} bands; the crop "
+            f"height must be at least {need}")
     if world % sp:
         raise ValueError(
             f"mesh.model_parallelism={sp} must divide the number of ranks "
@@ -184,6 +178,10 @@ class Trainer:
             num_shards=self.mesh.dp, shard=self.mesh.dp_index,
             val_shards=process_count(), val_shard=process_index(),
             is_primary=is_primary)
+        # the train set's ignore label (what a band's padding rows hold in
+        # the label, shard_batch_spatial)
+        self.ignore_label = getattr(self.train_set, "ignore_label",
+                                    cfg.dataset.ignore_label)
         self.steps_per_epoch = max(1, len(self.train_loader))
         if cfg.train.test_mode:
             self.steps_per_epoch = min(self.steps_per_epoch, 10)
@@ -273,10 +271,8 @@ class Trainer:
         if (invert and cfg.dataset.jointwtborder
                 and self.train_set is not None
                 and hasattr(self.train_set, "label_transform")):
-            ignore = getattr(self.train_set, "ignore_label",
-                             cfg.dataset.ignore_label)
             self.train_set.label_transform = relaxed_label_transform(
-                cfg, ignore, reduce_border=True)
+                cfg, self.ignore_label, reduce_border=True)
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
@@ -330,11 +326,12 @@ class Trainer:
                 first_wait = data_s
             if i == 1:
                 spatial.reset_counts()
-            band = shard_batch_spatial(self.mesh, batch)
-            device_batch = {"image": self._upload(band["image"]),
-                            "label": self._upload(band["label"])}
             # on bands through the backward too (remat recomputes there)
             with spatial.sharded(self.mesh.bands):
+                band = shard_batch_spatial(self.mesh, batch,
+                                           self.ignore_label)
+                device_batch = {"image": self._upload(band["image"]),
+                                "label": self._upload(band["label"])}
                 metrics = train_step(self.net, self.optimizer, device_batch,
                                      self.step)
             self.step += 1
