@@ -4,10 +4,14 @@ the three eval scales (and at ragged and wider cases) and times it there
 beside its bound (and beside F.scaled_dot_product_attention, or the
 model's unfused cuDNN block), with inputs from device memory, drives
 the W48 3-scale eval recipe as shipped (with its image dumps) through the
-CLI's code, compares kernels on vs off, and profiles one image. Then the
-eval surfaces over a seeded 1024x2048 Cityscapes tree: ``dump`` in four
-modes ([dump]), ``export`` of the W48 3-scale program with both kernels as
-registered ops, served in process and over HTTP ([serve]), and
+CLI's code, compares kernels on vs off, and profiles one image. The
+bottleneck's second kernel, for every width but W48's (256, 64), is held
+at four widths and ragged cases, timed beside the first and the cuDNN
+block, and driven by ``MscaleOCR`` with a 32-wide stage 1 at three scales
+([s1w32-eval]). Then the eval surfaces over a seeded 1024x2048
+Cityscapes tree: ``dump`` in four modes ([dump]), ``export`` of the W48
+3-scale program with both kernels as registered ops, served in process
+and over HTTP ([serve]), and
 ``summary`` ([summary]). Then the training slice: one tiny f32 train step
 on the card vs the CPU and remat on vs off ([train-parity]), the W48
 ``train_cityscapes.yaml`` run through the CLI's code for two short epochs
@@ -260,13 +264,17 @@ def _attention_case(gen, b, n, k, d, dtype, scale=1.0):
 
 
 def _bottleneck_case(gen, b, h, w, c=256, m=64):
+    """Seeded inputs of one block; the weights' scale follows their fan-in
+    from 0.1 at (256, 64), so every width's output keeps that width's
+    magnitude (|out| < 32, where the max|d| bound is a few bf16 ulps)."""
     r = lambda *s: torch.randn(*s, generator=gen)
+    s1, s2 = 0.1 * (256 / c) ** 0.5, 0.1 * (64 / m) ** 0.5
     x = r(b, h, w, c).to("cuda", torch.bfloat16)
-    w1 = (r(c, m) * 0.1).to("cuda", torch.bfloat16)
+    w1 = (r(c, m) * s1).to("cuda", torch.bfloat16)
     b1 = (r(m).abs() + 0.5).cuda()          # positive: pins the border
-    w2 = (r(9, m, m) * 0.1).to("cuda", torch.bfloat16)
+    w2 = (r(9, m, m) * s2).to("cuda", torch.bfloat16)
     b2 = (r(m) * 0.1).cuda()
-    w3 = (r(m, c) * 0.1).to("cuda", torch.bfloat16)
+    w3 = (r(m, c) * s2).to("cuda", torch.bfloat16)
     b3 = (r(c) * 0.1).cuda()
     return x, w1, b1, w2, b2, w3, b3
 
@@ -419,24 +427,109 @@ def _time_bottleneck(bk, gen, card_info):
     return rows
 
 
+# the kernel of the other widths: the widths timed on the 1.0x map, and the
+# one its record leads with (the [s1w32-eval] model's stage-1 width)
+BNECK_ANY_WIDTHS = ((64, 16), (128, 32), (256, 64), (512, 128))
+BNECK_ANY_MAIN = "128x32"
+
+
+def _check_bottleneck_any(bk, gen):
+    """The kernel of the other widths vs its plain version off the timed
+    shapes, b1 > 0: (128, 32) at a ragged batch of 2 and at a batch of 3
+    smaller than two tiles, a width that is not 4x, (96, 40), and the
+    widest, (1024, 256) on 4-row tiles, at the ragged batch. Returns the
+    largest max|d|."""
+    worst = 0.0
+    for tag, shape, (c, m) in (("ragged", (2, 37, 75), (128, 32)),
+                               ("small", (3, 9, 13), (128, 32)),
+                               ("ragged", (2, 37, 75), (96, 40)),
+                               ("ragged", (2, 37, 75), (1024, 256))):
+        args = _bottleneck_case(gen, *shape, c=c, m=m)
+        err = held_bottleneck(f"any-width {tag} (C, M) = ({c}, {m})",
+                              bk.fused_bottleneck_any(*args),
+                              bk.bottleneck_reference(*args))
+        worst = max(worst, err["max_abs_err"])
+    return worst
+
+
+def _time_bottleneck_any(bk, gen, card_info):
+    """At each width of BNECK_ANY_WIDTHS on the 1.0x map (1, 256, 512, C):
+    the kernel of the other widths held against its plain version, then
+    it, the plain version and the unfused eval block ``Bottleneck(C, M)``
+    (cuDNN bf16 convs) timed; at (256, 64) the wgmma kernel, which the
+    model runs there, beside it on the same inputs. No single PyTorch call
+    computes the block, so there is no library time."""
+    from tpuseg_torch.models.hrnet import Bottleneck
+    from tpuseg_torch.models.layers import init_weights
+
+    rows = {}
+    for c, m in BNECK_ANY_WIDTHS:
+        block = Bottleneck(c, m)
+        init_weights(block, torch.Generator().manual_seed(0))
+        block = block.to("cuda", memory_format=torch.channels_last).eval()
+        args = _bottleneck_case(gen, 1, *BNECK_HW[1.0], c=c, m=m)
+        x, weights = args[0], args[1:]
+
+        def run(x):
+            return bk.fused_bottleneck_any(x, *weights)
+
+        def unfused(x):
+            return block(x.permute(0, 3, 1, 2))  # NCHW view of NHWC
+
+        err = held_bottleneck(f"any-width 1.0x (C, M) = ({c}, {m})", run(x),
+                              bk.bottleneck_reference(*args))
+        copies = copies_past_l2((x,), 2 * x.numel() * 2)
+        ms = time_ms(run, copies)
+        dev, host = profiled_ms(run, copies)
+        plain = time_ms(lambda x: bk.bottleneck_reference(x, *weights),
+                        copies)
+        with torch.inference_mode():
+            unfused_ms = time_ms(unfused, copies)
+        bnd, by = _bottleneck_bound(*args)
+        row = {"ms": ms, "kernel_ms": dev, "host_ms": host,
+               "plain_ms": plain, "unfused_ms": unfused_ms, "bound_ms": bnd,
+               "bound_by": by, **err}
+        wgmma = ""
+        if (c, m) == bk.KERNEL_SHAPE:
+            packed = bk.pack_weights(*weights)
+            row["wgmma_ms"] = time_ms(
+                lambda x: bk.fused_bottleneck_packed(x, packed), copies)
+            wgmma = (f"; the wgmma kernel {row['wgmma_ms']:.4f} ms on the "
+                     f"same inputs")
+        rows[f"{c}x{m}"] = row
+        log(f"[kernel] bottleneck any-width 1.0x x=(1,{BNECK_HW[1.0][0]},"
+            f"{BNECK_HW[1.0][1]},{c}) M={m} bf16: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, unfused cuDNN block {unfused_ms:.4f} ms, bound "
+            f"{bnd:.4f} ms ({by}), {bnd / ms:.1%} of the bound (median of "
+            f"{REPS} x 10 calls over {len(copies)} input copies); "
+            f"profiled: kernel {dev:.4f} ms, host {host:.4f} ms a call"
+            f"{wgmma}; {card_info}")
+        del block
+    return rows
+
+
 def phase_kernels(card_info: str) -> list:
     """Each kernel vs its plain version on the card, then timed at the main
-    path's shapes at the three scales. Returns the JSON records (launches
+    path's shapes at the three scales (the kernel of the other widths at
+    four widths on the 1.0x map). Returns the JSON records (launches
     filled in by the main path's run)."""
     from tpuseg_torch.kernels import bottleneck_fused as bk
     from tpuseg_torch.kernels import ocr_attention as ak
 
     gen = torch.Generator().manual_seed(0)
     records = []
-    for name, mod, check, timed, replaces in (
+    for name, mod, check, timed, replaces, main_key, rows_key in (
             ("ocr_attention", ak, _check_attention, _time_attention,
-             "tpuseg/kernels/ocr_attention.py:92"),
+             "tpuseg/kernels/ocr_attention.py:92", 1.0, "scales"),
             ("bottleneck_fused", bk, _check_bottleneck, _time_bottleneck,
-             "tpuseg/kernels/bottleneck_fused.py:118")):
+             "tpuseg/kernels/bottleneck_fused.py:118", 1.0, "scales"),
+            ("bottleneck_fused_any", bk, _check_bottleneck_any,
+             _time_bottleneck_any, "tpuseg/kernels/bottleneck_fused.py:118",
+             BNECK_ANY_MAIN, "widths")):
         rows = timed(mod, gen, card_info)
         max_abs = max(check(mod, gen),
                       *(r["max_abs_err"] for r in rows.values()))
-        main = rows[1.0]
+        main = rows[main_key]
         records.append({
             "name": name, "route": "cuda",
             "source": f"tpuseg_torch/csrc/{name}.cu", "replaces": replaces,
@@ -446,7 +539,7 @@ def phase_kernels(card_info: str) -> list:
             "library_ms": main.get("library_ms"),
             **({"unfused_ms": main["unfused_ms"]} if "unfused_ms" in main
                else {}),
-            "scales": {str(s): r for s, r in rows.items()}})
+            rows_key: {str(s): r for s, r in rows.items()}})
     return records
 
 
@@ -474,29 +567,46 @@ def _run_cli(argv: list):
     -> (stdout text, wall seconds, {kernel: launches in the run}). The
     launch counts are set to 0 just before the run."""
     from tpuseg_torch.cli.main import main as cli_main
-    from tpuseg_torch.kernels import bottleneck_fused as bk
-    from tpuseg_torch.kernels import ocr_attention as ak
 
     tee = _Tee(sys.stdout)
-    ak.LAUNCHES = bk.LAUNCHES = 0
+    reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
         rc = cli_main(argv)
     wall = time.perf_counter() - t0
     if rc != 0:
         raise AssertionError(f"tpuseg_torch.cli {argv[0]} returned {rc}")
-    return tee.buf.getvalue(), wall, {"ocr_attention": ak.LAUNCHES,
-                                      "bottleneck_fused": bk.LAUNCHES}
+    return tee.buf.getvalue(), wall, launch_counts()
+
+
+# every kernel's launch counter, by the name of its record
+KERNELS = ("ocr_attention", "bottleneck_fused", "bottleneck_fused_any")
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count to 0."""
+    from tpuseg_torch.kernels import bottleneck_fused as bk
+    from tpuseg_torch.kernels import ocr_attention as ak
+
+    ak.LAUNCHES = bk.LAUNCHES = bk.ANY_LAUNCHES = 0
+
+
+def launch_counts() -> dict:
+    """{kernel: launches since the last :func:`reset_launches`}."""
+    from tpuseg_torch.kernels import bottleneck_fused as bk
+    from tpuseg_torch.kernels import ocr_attention as ak
+
+    return dict(zip(KERNELS, (ak.LAUNCHES, bk.LAUNCHES, bk.ANY_LAUNCHES)))
 
 
 def _hold_launches(tag: str, launches: dict, forwards: int,
-                   per: tuple = (3, 9)) -> None:
-    """Held: ``per`` = (attention, bottleneck) launches a forward (an
-    image), ``forwards`` of them."""
-    want = {"ocr_attention": per[0] * forwards,
-            "bottleneck_fused": per[1] * forwards}
-    log(f"[{tag}] launches {launches} (want {want}: {per[0]} attention and "
-        f"{per[1]} bottleneck calls an image, {forwards} images)")
+                   per: tuple = (3, 9, 0)) -> None:
+    """Held: ``per`` = (attention, (256, 64) bottleneck, other-width
+    bottleneck) launches a forward (an image), ``forwards`` of them."""
+    want = {k: n * forwards for k, n in zip(KERNELS, per)}
+    log(f"[{tag}] launches {launches} (want {want}: {per[0]} attention, "
+        f"{per[1]} (256, 64) bottleneck and {per[2]} other-width "
+        f"bottleneck calls an image, {forwards} images)")
     if launches != want:
         raise AssertionError(f"[{tag}] launch counts {launches} != {want}")
 
@@ -602,6 +712,126 @@ def _set_kernels(model, on: bool) -> None:
             m.fused_kernel = on
         elif isinstance(m, ObjectAttention):
             m.use_pallas = on
+
+
+S1W32_FORWARDS = 3  # [s1w32-eval]: images; 2..N are timed
+# [s1w32-eval]: the model with the kernel of the other widths vs the same
+# model with that kernel's plain version in its place, at stage 1's output
+# (the three fused blocks' last) at each scale. Each fused call is within
+# ~2e-6 L1 of its plain version, as rare one-ulp flips of its bf16
+# intermediates, and each block flips more of the next one's: 8.3e-5 to
+# 9.4e-5 at stage 1's output on an H100 (PERF.md §6). The logits, past the
+# rest of a random net, are printed only (7.1e-2, argmax agreement 0.889
+# there)
+S1W32_STAGE1_L1 = 1e-3
+
+
+def _kernel_vs_plain_in_model(tag: str, model, runner, image, label,
+                              card_info: str) -> None:
+    """The runner's forward with the kernel of the other widths against
+    the same forward with its plain version (``bottleneck_reference`` on
+    the card) in its place. Held: stage 1's output at every scale within
+    S1W32_STAGE1_L1; the logits printed."""
+    from tpuseg_torch.kernels import bottleneck_fused as bk
+
+    def plain(x, *weights):
+        return bk.bottleneck_reference(x, *weights).contiguous()
+
+    launch, seen, outs, logits = bk._launch_any, [], [], []
+    # the trunk runs stage 1's blocks one by one: its output is the last's
+    hook = model.backbone.layer1[-1].register_forward_hook(
+        lambda mod, args, out: seen.append(out))
+    try:
+        with torch.inference_mode():
+            for fn in (launch, plain):
+                bk._launch_any = fn
+                logits.append(runner.forward(image, label,
+                                             runner.init_acc())[0])
+                outs.append(seen[:])
+                seen.clear()
+    finally:
+        bk._launch_any = launch
+        hook.remove()
+    stage1 = [compare(a, b) for a, b in zip(*outs)]
+    got, want = logits
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    log(f"[{tag}] the model with the other-width kernel vs with its plain "
+        f"version in its place, one image: stage 1's output by scale "
+        + ", ".join(f"{tuple(a.shape)} l1_rel {l1:.3e} max|d| {mx:.3e}"
+                    for a, (mx, l1) in zip(outs[0], stage1))
+        + f" (held: l1_rel < {S1W32_STAGE1_L1}); logits argmax agreement "
+        f"{agree:.5f}, l1_rel {compare(got, want)[1]:.3e} (printed), on "
+        f"{card_info}")
+    if len(stage1) != len(model.n_scales) or not all(
+            l1 < S1W32_STAGE1_L1 for _, l1 in stage1) or not (
+            torch.isfinite(got).all()):
+        raise AssertionError(f"[{tag}] kernel vs plain in the model: "
+                             f"stage 1 {stage1}")
+
+
+def phase_s1w32_eval(card_info: str) -> dict:
+    """The slice of the kernel of the other widths: ``MscaleOCR`` with a
+    32-wide stage 1 (``HRNetSpec(stage1_channels=32)``: W48 in stages 2-4,
+    three identity blocks at (C, M) = (128, 32)), ``fused_stage1`` and
+    ``use_pallas`` on, bf16, n-scale {0.5, 1.0, 2.0} through EvalRunner on
+    seeded 1024x2048 scenes, seeded weights whose BN statistics are
+    calibrated on one scene. Held: 3 attention, 0 (256, 64) and 9
+    other-width bottleneck launches an image, each kernel vs its plain
+    version at the model's own inputs, and the model with the kernel vs
+    with its plain version in its place at stage 1's output. Printed: ms
+    an image, and kernels on vs off against the same weights' f32
+    forward (held in [mscale-eval]; a draw on this net, see
+    :func:`_kernel_vs_plain_in_model`). Returns the launches."""
+    from tpuseg_torch.evaluation.inference import EvalRunner
+    from tpuseg_torch.models.hrnet import HRNetSpec
+    from tpuseg_torch.models.layers import init_weights
+    from tpuseg_torch.models.ocrnet import MscaleOCR
+    from tpuseg_torch.ops import device_normalize
+
+    model = MscaleOCR(num_classes=19, spec=HRNetSpec(stage1_channels=32),
+                      fused_stage1=True, use_pallas=True)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to("cuda", memory_format=torch.channels_last).eval()
+    scene, _, _ = _fake_scene(1000)
+    x = device_normalize(torch.from_numpy(scene[None]).cuda())
+    _set_kernels(model, False)
+    _calibrate_bn(model, x)
+    _set_kernels(model, True)
+
+    runner = EvalRunner(model, 19, device="cuda")
+    images = []
+    for seed in range(1001, 1001 + S1W32_FORWARDS):
+        image, _, tid = _fake_scene(seed)
+        images.append((torch.from_numpy(image[None]).cuda(),
+                       torch.from_numpy(tid[None].astype(np.uint8)).cuda()))
+    times = []
+    reset_launches()
+    with torch.inference_mode():
+        for image, label in images:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner.forward(image, label, runner.init_acc())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    launches = launch_counts()
+    _hold_launches("s1w32-eval", launches, len(images), per=(3, 0, 9))
+    log(f"[s1w32-eval] MscaleOCR, HRNetSpec(stage1_channels=32), bf16, "
+        f"n-scale {model.n_scales}, {len(images)} 1024x2048 images: "
+        f"{np.median(times[1:]) * 1e3:.1f} ms an image (median of images "
+        f"2-{len(images)}, host clock), on {card_info}")
+    _kernels_at_trained_inputs(model, x, tag="s1w32-eval")
+    # on/off vs f32 is printed, not held: the kernel and the unfused bf16
+    # block are each a bf16 rounding from the block's math, and the
+    # random net compounds either past stage 1, so which side lands nearer
+    # f32 is a draw ([mscale-eval] has held it by a 0.1 % margin on an
+    # H100; PERF.md §6)
+    _on_off_vs_f32("s1w32-eval", model, {"num_classes": 19}, *images[0],
+                   card_info, hold=False)
+    _kernel_vs_plain_in_model("s1w32-eval", model, runner, *images[0],
+                              card_info)
+    del model, runner
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_on_off(card_info: str) -> None:
@@ -859,7 +1089,7 @@ def phase_dump(card_info: str, root: str, model, ckpt: str) -> dict:
              ("topn", ["eval.dump_topn=2"], 2))
     topn = [f"dataset.cityscapes_dir={_topn_tree(root)}"] + common[1:]
     want_topn = _reference_predictions(model, topn)
-    total = {"ocr_attention": 0, "bottleneck_fused": 0}
+    total = dict.fromkeys(KERNELS, 0)
     for mode, extra, forwards in modes:
         sets = (topn if mode == "topn" else common) + extra
         logdir = Path(root, f"dump_{mode}")
@@ -940,8 +1170,6 @@ def phase_serve(card_info: str, root: str, model, ckpt: str) -> dict:
     import urllib.request
 
     from tpuseg_torch import serving
-    from tpuseg_torch.kernels import bottleneck_fused as bk
-    from tpuseg_torch.kernels import ocr_attention as ak
     from tpuseg_torch.ops import device_normalize
 
     bundle = Path(root, "bundle")
@@ -988,11 +1216,10 @@ def phase_serve(card_info: str, root: str, model, ckpt: str) -> dict:
             times.append(time.perf_counter() - t)
         return out, float(np.median(times[1:])) * 1e3
 
-    ak.LAUNCHES = bk.LAUNCHES = 0
+    reset_launches()
     served = serve(x)
     torch.cuda.synchronize()
-    launches = {"ocr_attention": ak.LAUNCHES,
-                "bottleneck_fused": bk.LAUNCHES}
+    launches = launch_counts()
     _hold_launches("serve", launches, 1)
     served, served_ms = timed(lambda: serve(x))
     with torch.inference_mode():
@@ -1351,7 +1578,7 @@ def _kernels_at_trained_inputs(model, image, forward=None,
     finally:
         for h in hooks:
             h.remove()
-    worst = {"bottleneck_fused": 0.0, "ocr_attention": 0.0}
+    worst = {}  # each kernel's worst l1_rel
     unfused = 0.0  # the model's unfused bf16 block vs the same reference
     largest = {}  # each kernel's largest input
     try:
@@ -1362,7 +1589,9 @@ def _kernels_at_trained_inputs(model, image, forward=None,
                     packed = mod._folded()
                     got = bk.fused_bottleneck_packed(x, packed)
                     want = bk.bottleneck_reference(x, *packed.weights)
-                    name = "bottleneck_fused"
+                    name = ("bottleneck_fused" if tuple(
+                        packed.weights[0].shape) == bk.KERNEL_SHAPE
+                        else "bottleneck_fused_any")
                     unfused = max(unfused, compare(
                         mod(args[0]).permute(0, 2, 3, 1), want)[1])
                 else:
@@ -1374,7 +1603,8 @@ def _kernels_at_trained_inputs(model, image, forward=None,
                     got = ak.fused_object_attention(q, key, val)
                     want = ak.object_attention_reference(q, key, val)
                     name = "ocr_attention"
-                worst[name] = max(worst[name], compare(got, want)[1])
+                worst[name] = max(worst.get(name, 0.0),
+                                  compare(got, want)[1])
                 if x.numel() > largest.get(name, (0,))[0]:
                     largest[name] = (x.numel(), tuple(x.shape))
     finally:
@@ -1405,8 +1635,6 @@ def phase_train(card_info: str, root: str) -> dict:
     from tpuseg_torch.cli.main import load_config, main as cli_main
     from tpuseg_torch.config import eval_model_config
     from tpuseg_torch.data.setup import setup_data
-    from tpuseg_torch.kernels import bottleneck_fused as bk
-    from tpuseg_torch.kernels import ocr_attention as ak
     from tpuseg_torch.models import get_model
     from tpuseg_torch.ops import device_normalize
     from tpuseg_torch.train.checkpoint import CheckpointManager
@@ -1432,7 +1660,7 @@ def phase_train(card_info: str, root: str) -> dict:
     tee = _Tee(sys.stdout)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    ak.LAUNCHES = bk.LAUNCHES = 0
+    reset_launches()
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(tee):
@@ -1441,8 +1669,7 @@ def phase_train(card_info: str, root: str) -> dict:
         undo()
         undo_pack()
     wall = time.perf_counter() - t0
-    launches = {"ocr_attention": ak.LAUNCHES,
-                "bottleneck_fused": bk.LAUNCHES}
+    launches = launch_counts()
     mem = torch.cuda.max_memory_allocated() / 2 ** 30
     for name in ("log.txt", "metrics.jsonl"):
         shutil.copy(Path(logdir, name), out_dir / name)
@@ -1524,7 +1751,8 @@ def phase_train(card_info: str, root: str) -> dict:
 
     # the validations launched both kernels on every image
     want = {"ocr_attention": 3 * 2 * TRAIN_VAL_IMAGES,
-            "bottleneck_fused": 9 * 2 * TRAIN_VAL_IMAGES}
+            "bottleneck_fused": 9 * 2 * TRAIN_VAL_IMAGES,
+            "bottleneck_fused_any": 0}
     log(f"[train] validation launches {launches} (want {want}: 3 attention "
         f"and 9 bottleneck calls an image, 2 validations)")
     if launches != want:
@@ -1787,8 +2015,6 @@ def phase_aspp_ocr(card_info: str, root: str) -> dict:
     from tpuseg_torch.config import make_config
     from tpuseg_torch.data.setup import setup_data
     from tpuseg_torch.evaluation.inference import EvalRunner
-    from tpuseg_torch.kernels import bottleneck_fused as bk
-    from tpuseg_torch.kernels import ocr_attention as ak
     from tpuseg_torch.models import get_model
     from tpuseg_torch.ops import device_normalize
 
@@ -1813,7 +2039,7 @@ def phase_aspp_ocr(card_info: str, root: str) -> dict:
     runner = EvalRunner(model, 19, scales=(1.0, 0.5, 2.0), is_mscale=False,
                         device="cuda")
     acc = runner.init_acc()
-    ak.LAUNCHES = bk.LAUNCHES = 0
+    reset_launches()
     t0 = None
     for i, batch in enumerate(batches):
         _, acc = runner.run_batch(batch, need_assets=False, acc=acc)
@@ -1822,8 +2048,7 @@ def phase_aspp_ocr(card_info: str, root: str) -> dict:
             t0 = time.perf_counter()
     hist = runner.drain(acc)[0]
     img_s = (len(batches) - 1) / (time.perf_counter() - t0)
-    launches = {"ocr_attention": ak.LAUNCHES,
-                "bottleneck_fused": bk.LAUNCHES}
+    launches = launch_counts()
     _hold_launches("aspp-ocr", launches, len(batches))
     log(f"[aspp-ocr] HRNet_ASPP_OCR (W48 + ASPP + OCR) bf16, outer scales "
         f"(1.0, 0.5, 2.0), {len(batches)} 1024x2048 val images: "
@@ -2137,10 +2362,11 @@ def _mscale_forward(model, x, scales):
 
 
 def _on_off_vs_f32(tag: str, model, runner_kw: dict, image, label,
-                   card_info: str) -> None:
+                   card_info: str, hold: bool = True) -> None:
     """Kernels on vs off, each against the same weights' f32 forward with
     the kernels off, through EvalRunner on one image (as [aspp-ocr]):
-    held, the kernels' side no farther from f32 than the other."""
+    held (unless ``hold`` is False: printed), the kernels' side no
+    farther from f32 than the other."""
     from tpuseg_torch.evaluation.inference import EvalRunner
 
     ref = copy.deepcopy(model).float()
@@ -2172,8 +2398,8 @@ def _on_off_vs_f32(tag: str, model, runner_kw: dict, image, label,
         f"{compare(on, off)[1]:.3e} (printed), on {card_info}")
     if not (torch.isfinite(on).all() and torch.isfinite(off).all()):
         raise AssertionError(f"[{tag}] non-finite logits")
-    if not (1e-2 <= std <= 1e2 and gap["on"][1] <= gap["off"][1]
-            and gap["on"][0] >= gap["off"][0] - 0.005):
+    if hold and not (1e-2 <= std <= 1e2 and gap["on"][1] <= gap["off"][1]
+                     and gap["on"][0] >= gap["off"][0] - 0.005):
         raise AssertionError(f"[{tag}] on/off vs f32: std {std}, {gap}")
 
 
@@ -2188,8 +2414,6 @@ def phase_mscale_eval(card_info: str, root: str) -> dict:
     from tpuseg_torch.config import eval_model_config, make_config
     from tpuseg_torch.data.setup import setup_data
     from tpuseg_torch.evaluation.inference import EvalRunner
-    from tpuseg_torch.kernels import bottleneck_fused as bk
-    from tpuseg_torch.kernels import ocr_attention as ak
     from tpuseg_torch.models import get_model
     from tpuseg_torch.ops import device_normalize
 
@@ -2212,7 +2436,7 @@ def phase_mscale_eval(card_info: str, root: str) -> dict:
     acc = runner.init_acc()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    ak.LAUNCHES = bk.LAUNCHES = 0
+    reset_launches()
     t0 = None
     for i, batch in enumerate(batches):
         _, acc = runner.run_batch(batch, need_assets=False, acc=acc)
@@ -2222,9 +2446,8 @@ def phase_mscale_eval(card_info: str, root: str) -> dict:
     hist = runner.drain(acc)[0]
     img_s = (len(batches) - 1) / (time.perf_counter() - t0)
     mem = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = {"ocr_attention": ak.LAUNCHES,
-                "bottleneck_fused": bk.LAUNCHES}
-    _hold_launches("mscale-eval", launches, len(batches), per=(0, 9))
+    launches = launch_counts()
+    _hold_launches("mscale-eval", launches, len(batches), per=(0, 9, 0))
     log(f"[mscale-eval] mscale.HRNet (W48 MscaleBasic) bf16, n-scale "
         f"{cfg.model.n_scales} in the model, {len(batches)} 1024x2048 val "
         f"images: {img_s:.4f} img/s (images 2-{len(batches)}), peak device "
@@ -2359,8 +2582,6 @@ def phase_mapillary_eval(card_info: str, mroot: str) -> dict:
     from tpuseg_torch.config import eval_model_config
     from tpuseg_torch.data.setup import setup_data
     from tpuseg_torch.evaluation.inference import make_eval_forward
-    from tpuseg_torch.kernels import bottleneck_fused as bk
-    from tpuseg_torch.kernels import ocr_attention as ak
     from tpuseg_torch.models import get_model
     from tpuseg_torch.ops import device_normalize
     from tpuseg_torch.train.loop import evaluate_only
@@ -2382,7 +2603,7 @@ def phase_mapillary_eval(card_info: str, mroot: str) -> dict:
     logdir = str(Path(mroot, "eval_logs"))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    ak.LAUNCHES = bk.LAUNCHES = 0
+    reset_launches()
     tee = _Tee(sys.stdout)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
@@ -2390,10 +2611,9 @@ def phase_mapillary_eval(card_info: str, mroot: str) -> dict:
                                 device="cuda")
     wall = time.perf_counter() - t0
     mem = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = {"ocr_attention": ak.LAUNCHES,
-                "bottleneck_fused": bk.LAUNCHES}
+    launches = launch_counts()
     n = len(MAPILLARY_VAL_HW)
-    _hold_launches("mapillary-eval", launches, n, per=(8, 24))
+    _hold_launches("mapillary-eval", launches, n, per=(8, 24, 0))
     img_s, mpx_s = _rate(tee.buf.getvalue())
     shapes = sorted({tuple(np.asarray(b["image"]).shape[1:3])
                      for b in loader})
@@ -2889,8 +3109,6 @@ def _child_cli(spec: dict) -> None:
     each kernel against its plain version at its own first val image."""
     from tpuseg_torch.cli.main import main as cli_main
     from tpuseg_torch.data.setup import setup_data
-    from tpuseg_torch.kernels import bottleneck_fused as bk
-    from tpuseg_torch.kernels import ocr_attention as ak
     from tpuseg_torch.ops import device_normalize
     from tpuseg_torch.parallel import (init_distributed, process_count,
                                        process_index)
@@ -2928,15 +3146,14 @@ def _child_cli(spec: dict) -> None:
 
     torch.distributed.all_reduce = counted
     torch.cuda.reset_peak_memory_stats()
-    ak.LAUNCHES = bk.LAUNCHES = 0
+    reset_launches()
     try:
         rc = cli_main(spec["argv"])
     finally:
         undo()
         loop.Trainer.validate = orig
         torch.distributed.all_reduce = all_reduce
-    launches = {"ocr_attention": ak.LAUNCHES,
-                "bottleneck_fused": bk.LAUNCHES}
+    launches = launch_counts()
     res = {"rank": rank, "world": process_count(), "rc": rc,
            "launches": launches, "images": len(recorded),
            "validations": validations,
@@ -3050,7 +3267,7 @@ def phase_ddp_train(card_info: str, root: str) -> dict:
                    for b in val_loader)
     # the first launch validates nothing (val_freq 2), the restart epoch 1
     want_vals = {"first": None, "restart": 1}
-    total = {"ocr_attention": 0, "bottleneck_fused": 0}
+    total = dict.fromkeys(KERNELS, 0)
     bad = []
     for name, text, ranks in (("first", first, first_ranks),
                               ("restart", restart, restart_ranks)):
@@ -3070,7 +3287,8 @@ def phase_ddp_train(card_info: str, root: str) -> dict:
         images = 0 if want_vals[name] is None else DDP_VAL_IMAGES // 2
         for r in ranks:
             want = {"ocr_attention": 3 * r["images"],
-                    "bottleneck_fused": 9 * r["images"]}
+                    "bottleneck_fused": 9 * r["images"],
+                    "bottleneck_fused_any": 0}
             if r["images"] != images or r["launches"] != want:
                 bad.append(f"{name} rank {r['rank']} launches "
                            f"{r['launches']} for {r['images']} images")
@@ -3094,14 +3312,14 @@ def phase_ddp_train(card_info: str, root: str) -> dict:
 
 
 # [ddp-nccl]'s tree: 3 train scenes (3 steps) and 2 val scenes
-NCCL_TRAIN, NCCL_VAL = 3, 2
+NCCL_TRAIN, NCCL_VAL = 2, 1
 
 
 def phase_ddp_nccl(card_info: str, root: str) -> None:
     """One rank with the production backend: ``torch.distributed.run
     --nproc-per-node 1`` of the CLI's code with ``--multi-host`` (NCCL on
     the card), ``train_cityscapes.yaml`` at W48 over a tree of NCCL_TRAIN
-    train and NCCL_VAL val scenes: 3 steps, one validation of 2 images,
+    train and NCCL_VAL val scenes: 2 steps, one validation of 1 image,
     then a termination request.
     Held: NCCL started and DDP wrapped the model, the epoch, the
     validation and its checkpoint. That more than one card trains
@@ -3180,11 +3398,13 @@ def _sp_inputs(hw=SP_PARITY_HW) -> dict:
 
 
 def _sp_steps(inp, mesh=None, copies: int = 1) -> dict:
-    """The recipe's RMI step, then the CE step, from the same weights, on
-    the card: on this rank's band under DDP when ``mesh`` is given, on a
-    batch of ``copies`` of the image otherwise. -> each loss's value and
-    gradients, the CE step's parameters and BN statistics after SGD, and
-    the sp collectives a step."""
+    """The CE step from the input weights on the card: on this rank's band
+    under DDP when ``mesh`` is given, on a batch of ``copies`` of the
+    image otherwise. -> ``{"ce": ...}``: the loss's value and gradients,
+    the parameters and BN statistics after SGD, and the sp collectives a
+    step. (The recipe's RMI step is not taken: its 9x9 solves amplify
+    cuDNN's f32 differences past any floor, and the CPU tests hold RMI on
+    bands exactly in f64.)"""
     from tpuseg_torch.config import make_config
     from tpuseg_torch.models import get_model
     from tpuseg_torch.parallel import shard_batch_spatial, spatial
@@ -3198,27 +3418,23 @@ def _sp_steps(inp, mesh=None, copies: int = 1) -> dict:
             device_ids=[torch.cuda.current_device()])
     whole = {k: np.concatenate([inp[k]] * copies)
              for k in ("image", "label")}
-    res = {}
-    for name in ("rmi", "ce"):
-        model.load_state_dict(inp["state"])
-        cfg = make_config({**inp["sets"], "loss.loss_type": name})
-        step, opt = _train_step_of(cfg, model)
-        spatial.reset_counts()
-        with spatial.sharded(None if mesh is None else mesh.bands):
-            # a band's rows enter the context's table of map heights
-            batch = whole if mesh is None else shard_batch_spatial(mesh,
-                                                                   whole)
-            batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
-                     for k, v in batch.items()}
-            loss = float(step(net, opt, batch, 0)["loss"])
-        res[name] = {"loss": loss, "counts": dict(spatial.COUNTS),
-                     "seconds": dict(spatial.SECONDS),
-                     "grads": {n: p.grad.detach().cpu()
-                               for n, p in model.named_parameters()}}
-    res["ce"]["params"] = {n: p.detach().cpu()
-                           for n, p in model.named_parameters()}
-    res["ce"]["stats"] = _stats(model)
-    return res
+    model.load_state_dict(inp["state"])
+    cfg = make_config({**inp["sets"], "loss.loss_type": "ce"})
+    step, opt = _train_step_of(cfg, model)
+    spatial.reset_counts()
+    with spatial.sharded(None if mesh is None else mesh.bands):
+        # a band's rows enter the context's table of map heights
+        batch = whole if mesh is None else shard_batch_spatial(mesh, whole)
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+                 for k, v in batch.items()}
+        loss = float(step(net, opt, batch, 0)["loss"])
+    return {"ce": {
+        "loss": loss, "counts": dict(spatial.COUNTS),
+        "seconds": dict(spatial.SECONDS),
+        "grads": {n: p.grad.detach().cpu()
+                  for n, p in model.named_parameters()},
+        "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+        "stats": _stats(model)}}
 
 
 def _deterministic() -> None:
@@ -3241,14 +3457,12 @@ def _child_sp_parity(tmp: str) -> None:
     torch.cuda.reset_peak_memory_stats()
     res = _sp_steps(inp, mesh)
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    res["sums"] = {name: float(sum(g.double().abs().sum()
-                                   for g in res[name]["grads"].values()))
-                   for name in ("rmi", "ce")}
+    res["sums"] = {"ce": float(sum(g.double().abs().sum()
+                                   for g in res["ce"]["grads"].values()))}
     res["sums"]["params"] = float(sum(
         p.double().abs().sum() for p in res["ce"]["params"].values()))
     if mesh.sp_index != 0:
-        for name in ("rmi", "ce"):
-            del res[name]["grads"]
+        del res["ce"]["grads"]
         del res["ce"]["params"]
     res["modules"] = _reference_modules()
     torch.save(res, Path(tmp, f"rank{mesh.sp_index}.pt"))
@@ -3259,15 +3473,13 @@ def phase_sp_parity(card_info: str) -> None:
     deterministic), one SP_PARITY_HW image, as two gloo ranks of one sp
     group on the card (``mesh.model_parallelism = 2``, dp 1: each rank
     its band of rows, halo exchanges through every conv and resize, the
-    OCR gather and RMI's sums over the group) under DDP, against one
+    OCR gather's sums over the group) under DDP, against one
     process on the whole image. Held for a CE step: the ranks' mean loss,
     the parameters after SGD and the BN running statistics within
     SP_PARITY_TOL, the gradients (L1-rel over every parameter) within 1e-4
     or SP_GRAD_FLOORS times the f32 floor (the one process on a batch of
     the image twice vs once), whichever is larger; both ranks' gradients
-    and parameters equal. Printed, not held: the recipe's RMI step's loss
-    and gradient gaps (its 9x9 solves amplify cuDNN's f32 differences,
-    PR 3)."""
+    and parameters equal."""
     out = Path("chiprun_out/sp_parity")
     out.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3309,18 +3521,14 @@ def phase_sp_parity(card_info: str) -> None:
                 + (out / "rank0.log").read_text()[-3000:])
         ranks = [torch.load(Path(tmp, f"rank{r}.pt"), weights_only=False)
                  for r in (0, 1)]
-    gaps, floor = {}, {}
-    for name in ("ce", "rmi"):
-        loss = (ranks[0][name]["loss"] + ranks[1][name]["loss"]) / 2
-        gaps[name] = {
-            "loss_rel": abs(loss - one[name]["loss"]) / abs(
-                one[name]["loss"]),
-            "grad_l1": _tree_l1(ranks[0][name]["grads"],
-                                one[name]["grads"])}
-        floor[name] = {
-            "loss_rel": abs(twice[name]["loss"] - one[name]["loss"]) / abs(
-                one[name]["loss"]),
-            "grad_l1": _tree_l1(twice[name]["grads"], one[name]["grads"])}
+    loss = (ranks[0]["ce"]["loss"] + ranks[1]["ce"]["loss"]) / 2
+    gaps = {"ce": {
+        "loss_rel": abs(loss - one["ce"]["loss"]) / abs(one["ce"]["loss"]),
+        "grad_l1": _tree_l1(ranks[0]["ce"]["grads"], one["ce"]["grads"])}}
+    floor = {"ce": {
+        "loss_rel": abs(twice["ce"]["loss"] - one["ce"]["loss"]) / abs(
+            one["ce"]["loss"]),
+        "grad_l1": _tree_l1(twice["ce"]["grads"], one["ce"]["grads"])}}
     bounds = dict(SP_PARITY_TOL, grad_l1=max(
         SP_PARITY_TOL["grad_l1"], SP_GRAD_FLOORS * floor["ce"]["grad_l1"]))
     gaps["ce"]["params_l1"] = _tree_l1(ranks[0]["ce"]["params"],
@@ -3338,12 +3546,7 @@ def phase_sp_parity(card_info: str) -> None:
             for k, v in gaps["ce"].items())
         + f"; the one process on the image twice vs once (the f32 floor): "
         f"loss_rel {floor['ce']['loss_rel']:.3e}, grad_l1 "
-        f"{floor['ce']['grad_l1']:.3e}; the recipe's RMI step (loss "
-        f"{one['rmi']['loss']:.6f}, not held): loss_rel "
-        f"{gaps['rmi']['loss_rel']:.3e}, grad_l1 "
-        f"{gaps['rmi']['grad_l1']:.3e}, floor loss_rel "
-        f"{floor['rmi']['loss_rel']:.3e}, grad_l1 "
-        f"{floor['rmi']['grad_l1']:.3e}; ranks' gradients and parameters "
+        f"{floor['ce']['grad_l1']:.3e}; ranks' gradients and parameters "
         f"equal (checksums): {same}; a CE step's sp collectives on a rank: "
         + ", ".join(f"{c['counts'][k]} {k} in {c['seconds'][k]:.3f} s"
                     for k in c["counts"])
@@ -3422,10 +3625,11 @@ def phase_sp_train(card_info: str, root: str) -> dict:
     if vals[0] != vals[1] or len(vals[0]) != 1 or vals[0][0][0] != 0 or \
             vals[0][0][2] != labelled:
         bad.append(f"validations {vals}")
-    total = {"ocr_attention": 0, "bottleneck_fused": 0}
+    total = dict.fromkeys(KERNELS, 0)
     for r in ranks:
         want = {"ocr_attention": 3 * r["images"],
-                "bottleneck_fused": 9 * r["images"]}
+                "bottleneck_fused": 9 * r["images"],
+                "bottleneck_fused_any": 0}
         if r["images"] != SP_VAL_IMAGES // 2 or r["launches"] != want:
             bad.append(f"rank {r['rank']} launches {r['launches']} for "
                        f"{r['images']} images")
@@ -3456,12 +3660,10 @@ SP_ZOO_HW = (256, 512)
 SP_ZOO_SEED = 11
 SP_ZOO_TOL = {"loss_rel": 1e-5, "params_l1": 2e-5, "stats_l1": 2e-5,
               "grad_l1": 1e-4}
-# [sp-deepv3-train]: 3 train scenes (two epochs of 3 steps at batch 1, dp
+# [sp-deepv3-train]: 3 train scenes (one epoch of 3 steps at batch 1, dp
 # 1) and 2 val scenes (one a rank)
 SP_DEEPV3_TRAIN, SP_DEEPV3_VAL = 3, 2
-# [sp-uneven-train]: the same 3 train scenes and 3 val scenes, one
-# a rank (the val split is sharded without padding: a rank past its
-# length would get an empty shard)
+# [sp-uneven-train]: the same 3 train scenes and 3 val scenes, one a rank
 SP_UNEVEN_VAL = 3
 
 
@@ -3706,8 +3908,8 @@ def _sp_deepv3_ranks(card_info: str, root: str, sp: int, n_val: int,
     """``train_cityscapes_deepv3.yaml`` as shipped plus
     ``mesh.model_parallelism=sp`` and ``train.batch_size=1`` through the
     CLI's code as ``sp`` gloo ranks of one sp group on the card
-    (``torch.distributed.run --nproc-per-node sp``, ``--multi-host``): two
-    epochs over SP_DEEPV3_TRAIN train scenes, then one whole-image
+    (``torch.distributed.run --nproc-per-node sp``, ``--multi-host``): one
+    epoch over SP_DEEPV3_TRAIN train scenes, then one whole-image
     validation of ``n_val`` val scenes, one a rank. Held: every
     rank ends, the checkpoint written, the same mIoU on every rank, every
     labelled val pixel counted once, no kernel launched (DeepLabV3+ has no
@@ -3722,10 +3924,9 @@ def _sp_deepv3_ranks(card_info: str, root: str, sp: int, n_val: int,
     sub = _subset_tree(root, SP_DEEPV3_TRAIN, n_val)
     # checkpoints stay out
     logdir = str(Path(sub, f"sp{sp}_deepv3_logs"))
-    steps = 2 * SP_DEEPV3_TRAIN
+    steps = SP_DEEPV3_TRAIN
     sets = [f"mesh.model_parallelism={sp}", "train.batch_size=1",
-            "train.test_mode=true", "train.log_every=1",
-            "train.val_freq=2",
+            "train.max_epoch=1", "train.log_every=1",
             f"dataset.cityscapes_dir={sub}",
             f"dataset.centroid_root={Path(sub, 'centroids')}"]
     argv = ["train", "--multi-host", "--config", DEEPV3_RECIPE, "--logdir",
@@ -3754,7 +3955,7 @@ def _sp_deepv3_ranks(card_info: str, root: str, sp: int, n_val: int,
     log(f"[{tag}] loss at steps 1..{steps}: "
         + " ".join(f"{v:.4f}" for v in losses)
         + f"; whole launch {wall:.1f} s; validations (epoch, mIoU, pixels) "
-        f"by rank {vals} (want epoch 1, {labelled} labelled pixels); "
+        f"by rank {vals} (want epoch 0, {labelled} labelled pixels); "
         f"images by rank {images}; launches by rank "
         f"{[r['launches'] for r in ranks]}; peak device memory by rank "
         + ", ".join(f"{r['peak_gib']:.2f}" for r in ranks)
@@ -3765,11 +3966,11 @@ def _sp_deepv3_ranks(card_info: str, root: str, sp: int, n_val: int,
         + f"; checkpoints {ckpts}")
     bad = []
     if any(v != vals[0] for v in vals) or len(vals[0]) != 1 or \
-            vals[0][0][0] != 1 or vals[0][0][2] != labelled:
+            vals[0][0][0] != 0 or vals[0][0][2] != labelled:
         bad.append(f"validations {vals}")
-    if images != [n_val // sp] * sp:
+    if images != [len(range(r, n_val, sp)) for r in range(sp)]:
         bad.append(f"val images by rank {images}")
-    total = {"ocr_attention": 0, "bottleneck_fused": 0}
+    total = dict.fromkeys(KERNELS, 0)
     for r in ranks:
         if any(r["launches"].values()):
             bad.append(f"rank {r['rank']} launches {r['launches']} for "
@@ -3813,7 +4014,7 @@ def phase_sp_uneven_train(card_info: str, root: str) -> dict:
 # HRNet_Mscale (the 0.5x pass's 5 stride-32 rows held as 2 + 2 + 1),
 # DeepV3PlusW38 (25 stride-8 rows: 9 + 9 + 7) and attnscale.DeepV3R50 with
 # the plain head (its 34-row attention map at 1.0x: 12 + 12 + 10). Held
-# as [sp-zoo-parity]; the W48 RMI step printed as [sp-parity] prints it
+# as [sp-zoo-parity]
 SP_UNEVEN = 3
 SP_UNEVEN_W48_HW = (320, 640)
 SP_UNEVEN_ZOO = {"deepv3.DeepV3PlusW38": (200, 400),
@@ -3839,9 +4040,9 @@ def _sp_uneven_inputs() -> dict:
 
 def _child_sp_uneven(tmp: str) -> None:
     """A rank of [sp-uneven-parity]: gloo on the card, one sp group of
-    SP_UNEVEN. It takes the W48 RMI and CE steps and each SP_UNEVEN_ZOO
-    factory's CE step on its padded band; then the ranks leave the group
-    and each runs one process for one case (rank 0 the W48 steps, rank i
+    SP_UNEVEN. It takes the W48 CE step and each SP_UNEVEN_ZOO factory's
+    CE step on its padded band; then the ranks leave the group
+    and each runs one process for one case (rank 0 the W48 step, rank i
     the i-th factory; DDP left every rank's results equal): the steps on
     the whole image, held against its band's, and the f32 floor (the image
     twice vs once)."""
@@ -3859,12 +4060,10 @@ def _child_sp_uneven(tmp: str) -> None:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     w48 = _sp_steps(inp["w48"], mesh)
-    res = {"w48": {name: {k: w48[name][k]
-                          for k in ("loss", "counts", "seconds")}
-                   for name in ("rmi", "ce")}}
+    res = {"w48": {"ce": {k: w48["ce"][k]
+                          for k in ("loss", "counts", "seconds")}}}
     res["w48"]["s"] = time.perf_counter() - t0
-    res["w48"]["sums"] = {"rmi": _sums(w48["rmi"], ("grads",)),
-                          "ce": _sums(w48["ce"],
+    res["w48"]["sums"] = {"ce": _sums(w48["ce"],
                                       ("grads", "params", "stats"))}
     mine = {}
     for i, (arch, case) in enumerate(inp["zoo"].items()):
@@ -3886,14 +4085,10 @@ def _child_sp_uneven(tmp: str) -> None:
     if rank == 0:
         one = _sp_steps(inp["w48"])
         twice = _sp_steps(inp["w48"], copies=2)
-        for name in ("rmi", "ce"):
-            res["w48"][name]["one"] = {
-                "loss": one[name]["loss"],
-                "grad_l1": _tree_l1(w48[name]["grads"], one[name]["grads"]),
-                "floor_loss_rel": abs(twice[name]["loss"]
-                                      - one[name]["loss"]) / abs(
-                                          one[name]["loss"]),
-                "floor": _tree_l1(twice[name]["grads"], one[name]["grads"])}
+        res["w48"]["ce"]["one"] = {
+            "loss": one["ce"]["loss"],
+            "grad_l1": _tree_l1(w48["ce"]["grads"], one["ce"]["grads"]),
+            "floor": _tree_l1(twice["ce"]["grads"], one["ce"]["grads"])}
         res["w48"]["ce"]["one"]["params_l1"] = _tree_l1(
             w48["ce"]["params"], one["ce"]["params"])
         res["w48"]["ce"]["one"]["stats_l1"] = _tree_l1(
@@ -3942,8 +4137,8 @@ def phase_sp_uneven_parity(card_info: str, started: dict) -> None:
     """Uneven bands: SP_UNEVEN gloo ranks of one sp group on the
     card, each on its band of ceil(H / 3) rows, the rows past H padding,
     against one process on the whole image, in f32 (TF32 off, cuDNN
-    deterministic): W48 ``HRNet_Mscale`` at SP_UNEVEN_W48_HW (the recipe's
-    RMI + aux + mscale CE step, and its CE step), DeepV3PlusW38 and
+    deterministic): W48 ``HRNet_Mscale`` at SP_UNEVEN_W48_HW (a CE + aux +
+    mscale CE step), DeepV3PlusW38 and
     attnscale.DeepV3R50's plain head at their SP_UNEVEN_ZOO crops (a CE
     step, dropout and drop path on, the masks seeded alike). The ranks run
     in the background from ``start_sp_uneven_parity`` on, beside the other
@@ -3953,11 +4148,8 @@ def phase_sp_uneven_parity(card_info: str, started: dict) -> None:
     floor (the one process on the image twice vs once, masks off); every
     rank's results equal (checksums), the factories' module outputs in
     the same memory formats on every rank; halo exchanges and sp sums
-    issued. Printed, not held, as [sp-parity] prints it: the W48 RMI
-    step's gaps beside its floor (its 9x9 solves amplify cuDNN's f32
-    differences far past that floor on even bands too, PERF.md).
-    Printed: each step's sp collectives with their host seconds, and each
-    rank's band step seconds."""
+    issued. Printed: each step's sp collectives with their host seconds,
+    and each rank's band step seconds."""
     out, tmp, procs = started["out"], started["tmp"], started["procs"]
     try:
         rcs = [p.wait(timeout=RANK_TIMEOUT) for p in procs]
@@ -4004,19 +4196,7 @@ def phase_sp_uneven_parity(card_info: str, started: dict) -> None:
             [g["ce"] for g in w], one,
             all(g["sums"]["ce"] == w[0]["sums"]["ce"] for g in w)):
         bad.append("W48 CE")
-    rmi = w[0]["rmi"]["one"]
-    loss = sum(g["rmi"]["loss"] for g in w) / len(w)
-    c = w[0]["rmi"]
-    log(f"[sp-uneven-parity] W48 HRNet_Mscale the recipe's RMI + aux + "
-        f"mscale CE step (loss {rmi['loss']:.6f}, printed, not held): "
-        f"loss_rel {abs(loss - rmi['loss']) / abs(rmi['loss']):.3e} (floor "
-        f"{rmi['floor_loss_rel']:.3e}), grad_l1 {rmi['grad_l1']:.3e} (floor"
-        f" {rmi['floor']:.3e}); ranks' gradients equal: "
-        f"{all(g['sums']['rmi'] == w[0]['sums']['rmi'] for g in w)}; a "
-        f"step's sp collectives on a rank: " + ", ".join(
-            f"{c['counts'][k]} {k} in {c['seconds'][k]:.3f} s"
-            for k in c["counts"])
-        + f"; both steps on a band by rank "
+    log(f"[sp-uneven-parity] W48 band step by rank "
         + " ".join(f"{g['s']:.2f}" for g in w) + " s")
     for arch, hw in SP_UNEVEN_ZOO.items():
         got = [r[arch] for r in ranks]
@@ -4084,6 +4264,7 @@ def run() -> int:
     records = timed(phase_kernels, card_info)
     launches = timed(phase_main_path, card_info)
     timed(phase_on_off, card_info)
+    s1w32_launches = timed(phase_s1w32_eval, card_info)
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
         _write_fake_cityscapes(root)
@@ -4128,7 +4309,14 @@ def run() -> int:
         mapillary_launches = timed(phase_mapillary_eval, card_info, mroot)
         timed(phase_mapillary_train, card_info, mroot)
     for r in records:
-        r["launches"] = launches[r["name"]]
+        # each kernel's launches on its own slice's path: W48's eval recipe
+        # for the two kernels it runs, [s1w32-eval] for the other widths
+        path = ("s1w32-eval" if r["name"] == "bottleneck_fused_any"
+                else "main")
+        r["path"] = path
+        r["launches"] = (s1w32_launches if path == "s1w32-eval"
+                         else launches)[r["name"]]
+        r["main_launches"] = launches[r["name"]]
         r["dump_launches"] = dump_launches[r["name"]]
         r["serve_launches"] = serve_launches[r["name"]]
         r["train_launches"] = train_launches[r["name"]]
@@ -4139,6 +4327,7 @@ def run() -> int:
         r["sp_launches"] = sp_launches[r["name"]]
         r["sp_deepv3_launches"] = sp_deepv3_launches[r["name"]]
         r["sp_uneven_launches"] = sp_uneven_launches[r["name"]]
+        r["s1w32_launches"] = s1w32_launches[r["name"]]
     log(f"[total] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s")
     ref_mods = _reference_modules()
     log(f"[imports] tpuseg / JAX modules loaded: {ref_mods}")

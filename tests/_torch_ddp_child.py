@@ -16,6 +16,11 @@ rank's share of each case and writes what the parent asserts to
 - ``Trainer.fit`` through the CLI's ``--multi-host``, twice: a whole
   test-mode run, and one where only rank 1 sees the termination file.
 
+With ``<dir> validate`` it runs only ``Trainer.validate`` over the val
+split of ``<dir>/val_inputs.pt``'s Cityscapes miniature (any number of
+ranks; tests/test_torch_val_shards.py) and writes ``<dir>/val_rank<r>.pt``:
+the names of the images this rank scored and the summed confusion matrix.
+
 Imports nothing of ``tpuseg`` or JAX; the modules it loaded go into the
 result.
 """
@@ -29,6 +34,7 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
+from tpuseg_torch.cli.main import load_config
 from tpuseg_torch.cli.main import main as cli_main
 from tpuseg_torch.config import make_config
 from tpuseg_torch.losses import get_loss
@@ -120,11 +126,34 @@ def fit_case(inp, rank, logdir, terminate_file=None):
     return {"rc": rc, "validations": seen, "text": out.getvalue()}
 
 
+def validate_case(inp, rank, logdir):
+    """``Trainer.validate`` on this rank's val shard: the image names this
+    rank scored and the matrix summed over the ranks."""
+    cfg = load_config(inp["recipe"], inp["sets"])
+    trainer = loop.Trainer(cfg, logdir, device="cpu", is_primary=rank == 0)
+    names = []
+    run_batch = trainer.eval_runner.run_batch
+
+    def spy(batch, *args, **kwargs):
+        names.extend(batch["name"])
+        return run_batch(batch, *args, **kwargs)
+
+    trainer.eval_runner.run_batch = spy
+    metrics = trainer.validate(0)
+    return {"names": names, "hist": metrics.hist}
+
+
 def main():
     out_dir = sys.argv[1]
     torch.set_num_threads(1)
     init_distributed("cpu")
     rank = process_index()
+    if sys.argv[2:] == ["validate"]:
+        inp = torch.load(os.path.join(out_dir, "val_inputs.pt"),
+                         weights_only=False)
+        res = validate_case(inp, rank, os.path.join(out_dir, "val"))
+        torch.save(res, os.path.join(out_dir, f"val_rank{rank}.pt"))
+        return
     inp = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=False)
     res = {"world": process_count()}
     res["bn"] = {name: bn_case(case, rank)

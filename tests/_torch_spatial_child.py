@@ -30,8 +30,11 @@ writes what the parent asserts to ``<dir>/<mode>_rank<r>.pt``. Modes:
   its share of the cases (``one_cases``, all by default): the same step
   on the whole image, against which the rank measures its band's step,
   and the f32 floor (the step with every weight moved by one f32
-  rounding). tests/test_torch_spatial_zoo.py runs it on 2 ranks,
-  tests/test_torch_spatial_uneven.py on 2 and on 3, on uneven bands.
+  rounding). A case marked ``f64`` runs in f64 (its model's parameters,
+  buffers and compute dtype), where the bands must match one process to
+  f64 rounding, and takes no floor. tests/test_torch_spatial_zoo.py runs
+  it on 2 ranks, tests/test_torch_spatial_uneven.py on 2 and on 3, on
+  uneven bands.
 
 Imports nothing of ``tpuseg`` or JAX; the modules it loaded go into the
 result.
@@ -219,15 +222,17 @@ def zoo_model(case):
     in ``case["kw"]``), in train mode; for
     ``tpuseg``'s weights (``case["state"]``) with its ``Dropout2d`` at
     p = 0 (``tpuseg`` draws its masks from one key, which no band can
-    draw)."""
+    draw); in f64 with ``case["f64"]``."""
+    dtype = torch.float64 if case.get("f64") else torch.float32
     if case.get("tiny"):
         module, cls, trunk = case["tiny"]
         model = getattr(importlib.import_module(
             f"tpuseg_torch.models.{module}"), cls)(
-                19, trunk=trunk, dtype=torch.float32,
+                19, trunk=trunk, dtype=dtype,
                 **case.get("kw", {})).train()
     else:
         model = get_model(make_config(case["sets"])).train()
+    model = model.to(dtype)
     if case.get("state") is not None:
         for m in model.modules():
             if isinstance(m, torch.nn.Dropout2d):
@@ -325,15 +330,17 @@ def zoo(inp, mesh):
     for name, (model, band) in mine.items():
         case = inp["zoo"][name]
         one = zoo_step(case, model)
-        moved = zoo_step(case, model, moved=True)
         res["gaps"][name] = {
             "loss": one["loss"],
             "grad_l1": _l1(band["grads"], one["grads"]),
             "params_l1": _l1(band["params"], one["params"]),
-            "stats_l1": _l1(band["stats"], one["stats"]),
-            "floor_loss_rel": abs(moved["loss"] - one["loss"]) / abs(
-                one["loss"]),
-            "floor_grad_l1": _l1(moved["grads"], one["grads"])}
+            "stats_l1": _l1(band["stats"], one["stats"])}
+        if not case.get("f64"):
+            moved = zoo_step(case, model, moved=True)
+            res["gaps"][name].update(
+                floor_loss_rel=abs(moved["loss"] - one["loss"]) / abs(
+                    one["loss"]),
+                floor_grad_l1=_l1(moved["grads"], one["grads"]))
     return res
 
 

@@ -119,12 +119,8 @@ def test_bottleneck_matches_reference_at_borders():
     assert max_abs(got[:, border], want[:, border]) < 2e-2
 
 
-def test_bottleneck_matches_tpu_kernel_interior():
-    """vs tpuseg's Pallas kernel (interpret mode) on interior pixels only:
-    that kernel reads relu(b1), not zero, at the 3x3's out-of-image taps
-    (bottleneck_fused.py:56-79; ROADMAP Queue 3), so its border row and
-    column differ from the block's math whenever b1 > 0."""
-    x, ws, got = _bottleneck_case(1)
+def _matches_tpu_kernel_interior(seed, c, m):
+    x, ws, got = _bottleneck_case(seed, c=c, m=m)
     tpu = np.asarray(jax_fused_bottleneck(x, *map(jnp.asarray, ws), th=8,
                                           tw=16, interpret=True), np.float32)
     assert l1_rel(got[:, 1:-1, 1:-1], tpu[:, 1:-1, 1:-1]) < 2e-2
@@ -132,13 +128,31 @@ def test_bottleneck_matches_tpu_kernel_interior():
     assert l1_rel(got[:, 0], tpu[:, 0]) > 2e-2
 
 
+def test_bottleneck_matches_tpu_kernel_interior():
+    """vs tpuseg's Pallas kernel (interpret mode) on interior pixels only:
+    that kernel reads relu(b1), not zero, at the 3x3's out-of-image taps
+    (bottleneck_fused.py:56-79; ROADMAP Queue 3), so its border row and
+    column differ from the block's math whenever b1 > 0."""
+    _matches_tpu_kernel_interior(1, 64, 16)
+
+
+def test_bottleneck_matches_tpu_kernel_interior_at_128_32():
+    """The same at (C, M) = (128, 32), a width that the port's kernel of
+    the other widths takes on CUDA (tpuseg's tests pin (64, 16) and
+    (128, 32): tests/test_pallas_kernels.py:83-84)."""
+    _matches_tpu_kernel_interior(4, 128, 32)
+
+
 def test_bottleneck_supports_and_cpu_pack():
-    """The CUDA kernel takes only the stage-1 width; on the CPU any width
-    runs the plain version, and packing CPU weights builds no parameter
-    block (that is packed by the CUDA source, for CUDA weights only)."""
+    """On CUDA the wgmma kernel takes the stage-1 width and the kernel of
+    the other widths every C and M that are multiples of 8 up to ANY_MAX;
+    on the CPU any width runs the plain version, and packing CPU weights
+    builds no parameter block (that is packed by the CUDA source, for
+    CUDA weights of the stage-1 width only)."""
     cpu, gpu = torch.device("cpu"), torch.device("cuda")
     assert bk.supports(gpu, *bk.KERNEL_SHAPE)
-    assert not bk.supports(gpu, 64, 16)
+    assert bk.supports(gpu, 64, 16)
+    assert not bk.supports(gpu, 64, 12)
     assert bk.supports(cpu, 64, 16)
     x, ws, _ = _bottleneck_case(2)
     packed = bk.pack_weights(*map(torch.from_numpy, ws))
@@ -158,3 +172,44 @@ def test_fold_bn_matches_jax():
                         *map(torch.from_numpy, (scale, bias, mean, var)))
     assert max_abs(wt.permute(2, 3, 1, 0), np.asarray(wj)) < 1e-6
     assert max_abs(bt, np.asarray(bj)) < 1e-6
+
+
+def _fake_cuda_call(c, m, blob, shape=(2, 9, 13)):
+    """The registered op's shape function on fake CUDA tensors (no card
+    needed): the output's shape, or what it raised."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        x = torch.empty(*shape, c, device="cuda", dtype=torch.bfloat16)
+        ws = [torch.empty(*s, device="cuda", dtype=dt) for s, dt in (
+            ((c, m), torch.bfloat16), ((m,), torch.float32),
+            ((9, m, m), torch.bfloat16), ((m,), torch.float32),
+            ((m, c), torch.bfloat16), ((c,), torch.float32))]
+        b = torch.empty(64, device="cuda", dtype=torch.uint8) if blob else None
+        try:
+            return tuple(torch.ops.tpuseg_torch.bottleneck_fused(
+                x, *ws, b).shape)
+        except ValueError as e:
+            return e
+
+
+@pytest.mark.parametrize("c,m,taken", [
+    (256, 64, True), (64, 16, True), (128, 32, True), (40, 40, True),
+    (96, 40, True), (512, 128, True), (1024, 256, True), (36, 9, False),
+    (64, 12, False), (1032, 256, False), (1024, 264, False)])
+def test_bottleneck_routing_on_cuda(c, m, taken):
+    """Which widths a CUDA tensor may take, without a card: ``supports``
+    and the op's checks (its shape function, ``register_fake``, on fake
+    CUDA tensors) agree; the packed block is required only at
+    (256, 64); the output has x's shape."""
+    gpu = torch.device("cuda")
+    assert bk.supports(gpu, c, m) is taken
+    assert bk.any_supports(c, m) is taken  # (256, 64) too, for timing
+    got = _fake_cuda_call(c, m, blob=False)
+    if not taken:
+        assert isinstance(got, ValueError) and "no CUDA kernel" in str(got)
+        return
+    if (c, m) == bk.KERNEL_SHAPE:
+        assert isinstance(got, ValueError) and "packed" in str(got)
+        got = _fake_cuda_call(c, m, blob=True)
+    assert got == (2, 9, 13, c)

@@ -49,25 +49,33 @@ def test_attention_kernel(cuda, n, k, d, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["model", "any"])
+@pytest.mark.parametrize("c,m", [(64, 16), (128, 32), (256, 64)])
 @pytest.mark.parametrize("shape", [(1, 128, 256), (1, 256, 512),
                                    (1, 512, 1024), (2, 37, 75), (3, 9, 13)])
-def test_bottleneck_kernel(cuda, shape):
+def test_bottleneck_kernel(cuda, shape, c, m, kernel):
     """Positive b1 (the border case), the main path's shapes at the three
-    scales and ragged batches. The max |d| bound is a few bf16 ulps of the
-    output (|out| < 32): one wrong 8x8 tile exceeds it, where it would move
-    the whole image's L1 by far less than 2e-2."""
+    scales and ragged batches, through the kernel the model runs at the
+    width (``fused_bottleneck``: the wgmma kernel at (256, 64), the kernel
+    of the other widths elsewhere) and through the kernel of the other
+    widths (``fused_bottleneck_any``). The max |d| bound is a few bf16
+    ulps of the output (|out| < 32): one wrong 8x8 tile exceeds it, where
+    it would move the whole image's L1 by far less than 2e-2."""
     g = torch.Generator().manual_seed(1)
     r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
-    c, m = 256, 64
     x = r(*shape, c).to(cuda, torch.bfloat16)
     w1, w2, w3 = ((r(*s) * 0.1).to(cuda, torch.bfloat16)
                   for s in ((c, m), (9, m, m), (m, c)))
     b1 = (r(m).abs() + 0.5).to(cuda)
     b2, b3 = (r(m) * 0.1).to(cuda), (r(c) * 0.1).to(cuda)
-    before = bk.LAUNCHES
-    got = bk.fused_bottleneck(x, w1, b1, w2, b2, w3, b3)
+    wgmma = kernel == "model" and (c, m) == bk.KERNEL_SHAPE
+    before = bk.LAUNCHES, bk.ANY_LAUNCHES
+    run = bk.fused_bottleneck if kernel == "model" else \
+        bk.fused_bottleneck_any
+    got = run(x, w1, b1, w2, b2, w3, b3)
     torch.cuda.synchronize()
-    assert bk.LAUNCHES == before + 1
+    assert (bk.LAUNCHES, bk.ANY_LAUNCHES) == (
+        before[0] + wgmma, before[1] + (not wgmma))
     want = bk.bottleneck_reference(x, w1, b1, w2, b2, w3, b3)
     border = torch.ones(shape[1:], dtype=torch.bool, device=cuda)
     border[1:-1, 1:-1] = False
@@ -86,11 +94,20 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ak.fused_object_attention(qb, qb[:, :4], qb[:, :4])
     xb = torch.zeros(1, 8, 16, 64, device=cuda, dtype=torch.bfloat16)
     wb = [torch.zeros(*s, device=cuda, dtype=dt) for s, dt in (
-        ((64, 16), torch.bfloat16), ((16,), torch.float32),
-        ((9, 16, 16), torch.bfloat16), ((16,), torch.float32),
-        ((16, 64), torch.bfloat16), ((64,), torch.float32))]
-    with pytest.raises(ValueError):  # not the (256, 64) stage-1 width
+        ((64, 12), torch.bfloat16), ((12,), torch.float32),
+        ((9, 12, 12), torch.bfloat16), ((12,), torch.float32),
+        ((12, 64), torch.bfloat16), ((64,), torch.float32))]
+    with pytest.raises(ValueError):  # M not a multiple of 8: no kernel
         bk.fused_bottleneck(xb, *wb)
+    with pytest.raises(ValueError):
+        bk.fused_bottleneck_any(xb, *wb)
+    xw = torch.zeros(1, 8, 16, 256, device=cuda, dtype=torch.bfloat16)
+    ww = [torch.zeros(*s, device=cuda, dtype=dt) for s, dt in (
+        ((256, 64), torch.bfloat16), ((64,), torch.float32),
+        ((9, 64, 64), torch.bfloat16), ((64,), torch.float32),
+        ((64, 256), torch.bfloat16), ((256,), torch.float32))]
+    with pytest.raises(ValueError):  # (256, 64) without its packed block
+        torch.ops.tpuseg_torch.bottleneck_fused(xw, *ww, None)
     x = torch.zeros(1, 8, 16, 64, device=cuda)  # f32, not bf16
     w = [torch.zeros(*s, device=cuda) for s in ((64, 16), (16,), (9, 16, 16),
                                                  (16,), (16, 64), (64,))]

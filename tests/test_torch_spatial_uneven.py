@@ -54,6 +54,15 @@ miss it on even bands too (192x32 over 3 even bands: 5.5e-4 against a
 floor of 2.0e-4). The RMI loss's own gradient on uneven bands is held in
 tests/test_torch_spatial_ops.py (the ``rmi`` loss at 37 rows over 2 and
 3 bands), and each RMI step here at the loss, parameters and statistics.
+
+In f64 the bands are exact. The sp 3 group also takes the HRNet cases
+(CE and RMI + aux, 320x32 and 224x32), ``DeepV3PlusW38Tiny`` at 72x32
+and ``attnscale.DeepV3R50`` at 80x32 in f64: parameters, buffers and
+compute dtype f64, the image normalised in f64 on the host (the uint8
+wire normalises to f32). Every upcast of the port promotes (f64 stays
+f64, ``tpuseg_torch/ops/precision.py``), so nothing rounds to f32 and
+the loss, the gradients (RMI's too), the parameters and the BN
+statistics are held at 1e-10 against one process.
 """
 import os
 import pickle
@@ -71,6 +80,7 @@ from tpuseg.config import make_config as jax_make_config
 from tpuseg.models import get_model as jax_get_model
 from tpuseg_torch.config import make_config
 from tpuseg_torch.models import get_model
+from tpuseg_torch.ops.normalize import IMAGENET_MEAN, IMAGENET_STD
 from tpuseg_torch.train.loop import check_spatial
 
 set_threads()
@@ -108,6 +118,15 @@ CASES = {
                            "model.n_scales": (0.5, 1.0, 2.0),
                            "loss.loss_type": "ce"}, (80, 32), None)},
 }
+# the f64 cases, exact up to f64 rounding (module docstring)
+F64 = {"hrnet320_ce": "hrnet320_ce_f64", "hrnet320_rmi": "hrnet320_rmi_f64",
+       "hrnet224_ce": "hrnet224_ce_f64", "hrnet224_rmi": "hrnet224_rmi_f64",
+       "w38tiny72": "w38tiny72_f64", "attnscale_r50": "attnscale_r50_f64"}
+F64_TOL = 1e-10
+CASES[3].update(
+    {f64: ({**sets, "model.compute_dtype": "float64"}, hw, tiny)
+     for name, f64 in F64.items()
+     for sets, hw, tiny in [CASES[2 if name == "w38tiny72" else 3][name]]})
 # held against tpuseg's sharded step too: case -> its loss
 JAX_CASES = {"hrnet160_ce": "ce", "hrnet160_rmi": "rmi"}
 ALL = {name: (sp, case) for sp, cases in CASES.items()
@@ -180,6 +199,10 @@ def cluster(tmp_path_factory):
                     image, label = _batch(rng, hw,
                                           2 if "hrnet" in name else 1)
                 zoo[name] = {"sets": sets, "image": image, "label": label}
+                if name in F64.values():
+                    zoo[name].update(f64=True, image=(
+                        image / 255.0 - np.asarray(IMAGENET_MEAN))
+                        / np.asarray(IMAGENET_STD))
                 if name in JAX_CASES:
                     zoo[name]["state"] = state
                 if tiny:
@@ -217,7 +240,7 @@ def test_case_is_admitted(name):
                                "mesh.model_parallelism": sp}), sp)
 
 
-@pytest.mark.parametrize("name", list(ALL))
+@pytest.mark.parametrize("name", [n for n in ALL if n not in F64.values()])
 def test_uneven_step_matches_one_process(cluster, name):
     """The ranks of one sp group, each on its padded band of the images,
     against the port's step on the whole batch in one process: the ranks'
@@ -237,6 +260,24 @@ def test_uneven_step_matches_one_process(cluster, name):
     if ALL[name][1][0]["loss.loss_type"] != "rmi":
         bound = max(GRAD_L1, GRAD_FLOORS * gaps["floor_grad_l1"])
         assert gaps["grad_l1"] <= bound, gaps
+    assert all(r["sums"][name] == ranks[0]["sums"][name] for r in ranks)
+    counts = ranks[0]["counts"][name]
+    assert counts["halo"] > 0 and counts["sum"] > 0, counts
+
+
+@pytest.mark.parametrize("name", list(F64.values()))
+def test_uneven_f64_step_is_exact(cluster, name):
+    """In f64 the three ranks' step on uneven bands (224x32 holds a band of
+    padding only at 0.5x) equals one process's up to f64 rounding: the
+    loss, the gradients (RMI's included), the parameters after SGD and the
+    BN statistics within 1e-10 L1-relative; every rank alike."""
+    ranks = cluster["ranks"][3]
+    gaps, = [r["gaps"][name] for r in ranks if name in r["gaps"]]
+    loss = sum(r["loss"][name] for r in ranks) / 3
+    assert abs(loss - gaps["loss"]) <= F64_TOL * abs(gaps["loss"]), (
+        loss, gaps["loss"])
+    for key in ("grad_l1", "params_l1", "stats_l1"):
+        assert gaps[key] < F64_TOL, gaps
     assert all(r["sums"][name] == ranks[0]["sums"][name] for r in ranks)
     counts = ranks[0]["counts"][name]
     assert counts["halo"] > 0 and counts["sum"] > 0, counts

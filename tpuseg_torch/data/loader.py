@@ -49,8 +49,10 @@ class BatchLoader:
                  num_workers: int = 8, prefetch: int = 2):
         self.dataset = dataset
         self.batch_size = batch_size
-        self.sampler = sampler or ShardedEpochSampler(
-            len(dataset), shuffle=shuffle)
+        # an empty shard is falsy: test for None, or it would take the
+        # whole split
+        self.sampler = sampler if sampler is not None else \
+            ShardedEpochSampler(len(dataset), shuffle=shuffle)
         self.drop_last = drop_last
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch

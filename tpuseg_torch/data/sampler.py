@@ -1,8 +1,12 @@
 """Per-host index sharding (reference: datasets/sampler.py:43-110).
 
-With single-process-per-host JAX there is no process-per-chip sampler; each
-host takes a contiguous or strided shard of an epoch-seeded permutation and
-feeds its local slice of the global batch.
+Each rank takes a strided shard of an epoch-seeded permutation and feeds
+its local slice of the global batch. Padded shards (training) repeat the
+first indices so that every rank has the same length; unpadded shards
+(validation) take ``indices[shard::num_shards]``, so the split is scored
+exactly once over the ranks and shard lengths differ by at most one.
+(``tpuseg``'s unpadded shards keep ``len // ranks`` indices each and skip
+the last ``len % ranks``.)
 """
 from __future__ import annotations
 
@@ -10,7 +14,9 @@ import numpy as np
 
 
 class ShardedEpochSampler:
-    """Epoch-seeded permutation, host-strided slicing, pad-to-divisible."""
+    """Epoch-seeded permutation, host-strided slicing; ``pad`` repeats
+    indices up to a multiple of ``num_shards``, else each index is in
+    exactly one shard."""
 
     def __init__(self, dataset_len: int, num_shards: int = 1, shard: int = 0,
                  shuffle: bool = True, pad: bool = True, seed: int = 0):
@@ -26,9 +32,11 @@ class ShardedEpochSampler:
     def _recompute(self):
         if self.pad:
             self.num_samples = -(-self.dataset_len // self.num_shards)
+            self.total_size = self.num_samples * self.num_shards
         else:
-            self.num_samples = self.dataset_len // self.num_shards
-        self.total_size = self.num_samples * self.num_shards
+            self.num_samples = len(range(self.shard, self.dataset_len,
+                                         self.num_shards))
+            self.total_size = self.dataset_len
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch

@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpuseg_torch"
-SOURCES = ("ocr_attention.cu", "bottleneck_fused.cu")
+SOURCES = ("ocr_attention.cu", "bottleneck_fused.cu",
+           "bottleneck_fused_any.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,6 +38,9 @@ SIGNATURES = {
     "tpuseg_bottleneck_param_bytes": (),
     # host pointers: w1, b1, w2, b2, w3, b3 -> the parameter block
     "tpuseg_bottleneck_pack": (_P, _P, _P, _P, _P, _P, _P),
+    # x, w1, b1, w2, b2, w3, b3, out, batch, h, w, c, m, stream
+    "tpuseg_bottleneck_any": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _I, _P),
 }
 
 

@@ -3,12 +3,18 @@ version and the BN folding.
 
 Port of ``tpuseg/kernels/bottleneck_fused.py``. With each BN folded into
 its conv, ``relu(conv1x1(relu(conv3x3(relu(conv1x1(x)+b1))+b2))+b3 + x)``
-with bf16 operands and intermediates and f32 accumulation. The kernel is
-``csrc/bottleneck_fused.cu``; its header says what bounds it on the H100
-and how it is laid out.
+with bf16 operands and intermediates and f32 accumulation. Two CUDA
+kernels compute it; each source's header says what bounds it on the H100
+and how it is laid out:
 
-The kernel computes the block's math, i.e. ``reference_bottleneck``: the
-3x3 reads zero at taps outside the image. (The TPU kernel reads relu(b1)
+- ``csrc/bottleneck_fused.cu`` (wgmma + TMA, weights resident in shared
+  memory) at HRNet's stage-1 width, (C, M) = KERNEL_SHAPE = (256, 64);
+- ``csrc/bottleneck_fused_any.cu`` (mma.sync, weights streamed through
+  L2) at every other (C, M) with C and M multiples of 8, C <= 1024 and
+  M <= 256 (ANY_MAX): see :func:`supports`.
+
+Both compute the block's math, i.e. ``reference_bottleneck``: the 3x3
+reads zero at taps outside the image. (The TPU kernel reads relu(b1)
 there; see ROADMAP Queue 3.)
 
 Folded weights, NHWC-friendly as in ``tpuseg``:
@@ -17,18 +23,19 @@ Folded weights, NHWC-friendly as in ``tpuseg``:
   w3 (M, C)      b3 (C,)   conv3 1x1 + bn3
 weights bf16, biases f32.
 
-On CUDA the kernel reads its weights from one parameter block in the
-layout of its shared memory, which the CUDA source alone defines and packs
-(:func:`pack_weights`, built once per weight state by the model and copied
-into each block with one bulk copy). The CUDA kernel is laid out for
-HRNet's stage-1 width, (C, M) = (256, 64): see :func:`supports`.
+At (256, 64) the CUDA kernel reads its weights from one parameter block
+in the layout of its shared memory, which the CUDA source alone defines
+and packs (:func:`pack_weights`, built once per weight state by the model
+and copied into each block with one bulk copy). The kernel of the other
+widths reads the folded weights as they are and needs no block.
 
 Dispatch: a CPU tensor takes :func:`bottleneck_reference`; a CUDA tensor
-launches the kernel or raises. There is no fallback. The wrapper is the
-registered op ``tpuseg_torch::bottleneck_fused`` with a shape function
-(``register_fake``), so an exported program (``tpuseg_torch.serving``)
-holds the kernel as one node and launches it when run on the card; the
-model freezes the packed block for it (``Bottleneck.freeze_folded``).
+launches the kernel of its width or raises. There is no fallback. The
+wrapper is the registered op ``tpuseg_torch::bottleneck_fused`` with a
+shape function (``register_fake``), so an exported program
+(``tpuseg_torch.serving``) holds the kernel as one node and launches it
+when run on the card; the model freezes the folded weights (and the
+packed block) for it (``Bottleneck.freeze_folded``).
 """
 
 from typing import NamedTuple, Optional
@@ -39,10 +46,13 @@ import torch.utils.flop_counter
 
 from tpuseg_torch.kernels import _build
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
+# launches since the last reset (chip_smoke.py reads and resets them): of
+# the (256, 64) kernel, and of the kernel of the other widths
 LAUNCHES = 0
+ANY_LAUNCHES = 0
 
-KERNEL_SHAPE = (256, 64)  # (C, M) the CUDA kernel's tiles are laid out for
+KERNEL_SHAPE = (256, 64)  # (C, M) bottleneck_fused.cu is laid out for
+ANY_MAX = (1024, 256)     # the largest (C, M) bottleneck_fused_any.cu takes
 
 
 def fold_bn(weight: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -98,11 +108,19 @@ def _check_weights(c, w1, b1, w2, b2, w3, b3):
                              f"{w1.device}")
 
 
+def any_supports(c: int, m: int) -> bool:
+    """Whether ``csrc/bottleneck_fused_any.cu`` takes (C, M): both multiples
+    of 8, up to ANY_MAX."""
+    return (c % 8 == 0 and m % 8 == 0 and 8 <= c <= ANY_MAX[0]
+            and 8 <= m <= ANY_MAX[1])
+
+
 def supports(device: torch.device, c: int, m: int) -> bool:
     """Whether the wrapper takes a block of C channels and width M on this
-    device: any shape on the CPU (the plain version), only KERNEL_SHAPE on
-    CUDA."""
-    return device.type == "cpu" or (c, m) == KERNEL_SHAPE
+    device: any shape on the CPU (the plain version); on CUDA
+    KERNEL_SHAPE (the wgmma kernel) and every width :func:`any_supports`
+    (the kernel of the other widths)."""
+    return device.type == "cpu" or any_supports(c, m)
 
 
 def pack_blob(w1, b1, w2, b2, w3, b3) -> torch.Tensor:
@@ -120,12 +138,12 @@ def pack_blob(w1, b1, w2, b2, w3, b3) -> torch.Tensor:
 
 def pack_weights(w1, b1, w2, b2, w3, b3) -> PackedWeights:
     """Folded weights ready for :func:`fused_bottleneck_packed`: the
-    parameter block is built for CUDA weights of the kernel's shape."""
+    parameter block is built for CUDA weights of KERNEL_SHAPE, the width
+    the wgmma kernel takes; at any other width it is None."""
     _check_weights(w1.shape[0], w1, b1, w2, b2, w3, b3)
     weights = (w1, b1, w2, b2, w3, b3)
     blob = None
-    if w1.device.type == "cuda" and \
-            supports(w1.device, w1.shape[0], w1.shape[1]):
+    if w1.device.type == "cuda" and tuple(w1.shape) == KERNEL_SHAPE:
         blob = pack_blob(*weights)
     return PackedWeights(weights, blob)
 
@@ -145,9 +163,8 @@ def fused_bottleneck_packed(x, packed: PackedWeights) -> torch.Tensor:
                                                     packed.blob)
 
 
-def _check_call(x, w1, b1, w2, b2, w3, b3, blob):
-    """What the op takes, from shapes, dtypes and devices alone (the real
-    implementation and the shape function both check it)."""
+def _check_inputs(x, w1, b1, w2, b2, w3, b3) -> bool:
+    """Shapes, devices and, on CUDA, dtypes; True for CPU tensors."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, H, W, C), got {tuple(x.shape)}")
     if x.shape[-1] != w1.shape[0] or x.device != w1.device:
@@ -155,7 +172,7 @@ def _check_call(x, w1, b1, w2, b2, w3, b3, blob):
                          f"w1 {tuple(w1.shape)} on {w1.device}")
     _check_weights(x.shape[-1], w1, b1, w2, b2, w3, b3)
     if x.device.type == "cpu":
-        return
+        return True
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     names = ("w1", "b1", "w2", "b2", "w3", "b3")
@@ -163,13 +180,22 @@ def _check_call(x, w1, b1, w2, b2, w3, b3, blob):
         want = torch.float32 if name.startswith("b") else torch.bfloat16
         if t.dtype != want:
             raise TypeError(f"{name} must be {want}, got {t.dtype}")
-    if not supports(x.device, x.shape[-1], w1.shape[-1]):
-        raise ValueError(f"the CUDA kernel is built for (C, M) = "
-                         f"{KERNEL_SHAPE}, HRNet's stage-1 block; got "
-                         f"({x.shape[-1]}, {w1.shape[-1]})")
-    if blob is None or blob.device != x.device:
-        raise ValueError("CUDA weights need the packed parameter block "
-                         "(pack_weights) on x's device")
+    return False
+
+
+def _check_call(x, w1, b1, w2, b2, w3, b3, blob):
+    """What the op takes, from shapes, dtypes and devices alone (the real
+    implementation and the shape function both check it)."""
+    if _check_inputs(x, w1, b1, w2, b2, w3, b3):
+        return
+    c, m = x.shape[-1], w1.shape[-1]
+    if not supports(x.device, c, m):
+        raise ValueError(f"no CUDA kernel takes (C, M) = ({c}, {m}): "
+                         f"{KERNEL_SHAPE}, or C and M multiples of 8 up "
+                         f"to {ANY_MAX}")
+    if (c, m) == KERNEL_SHAPE and (blob is None or blob.device != x.device):
+        raise ValueError("CUDA weights of (C, M) = (256, 64) need the packed "
+                         "parameter block (pack_weights) on x's device")
 
 
 @torch.library.custom_op("tpuseg_torch::bottleneck_fused", mutates_args=())
@@ -181,6 +207,8 @@ def _bottleneck_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if x.device.type == "cpu":
         # contiguous, as the shape function and the kernel give it
         return bottleneck_reference(x, w1, b1, w2, b2, w3, b3).contiguous()
+    if tuple(w1.shape) != KERNEL_SHAPE:
+        return _launch_any(x, w1, b1, w2, b2, w3, b3)
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("x must be contiguous and 16-byte aligned")
     b, h, w, _ = x.shape
@@ -195,6 +223,40 @@ def _bottleneck_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     _build.check(err, "bottleneck_fused")
     LAUNCHES += 1
     return out
+
+
+def _launch_any(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
+    """``csrc/bottleneck_fused_any.cu`` over CUDA tensors that
+    :func:`_check_call` has passed."""
+    for name, t in zip(("x", "w1", "b1", "w2", "b2", "w3", "b3"),
+                       (x, w1, b1, w2, b2, w3, b3)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte "
+                             f"aligned")
+    b, h, w, c = x.shape
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    global ANY_LAUNCHES
+    lib = _build.library()
+    err = lib.tpuseg_bottleneck_any(
+        *(t.data_ptr() for t in (x, w1, b1, w2, b2, w3, b3, out)), b, h, w,
+        c, w1.shape[-1], torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "bottleneck_fused_any")
+    ANY_LAUNCHES += 1
+    return out
+
+
+def fused_bottleneck_any(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
+    """The kernel of the other widths at any width it takes, (256, 64)
+    included, where the model runs the wgmma kernel: so the two can be
+    timed side by side. A CPU tensor takes the plain version."""
+    if _check_inputs(x, w1, b1, w2, b2, w3, b3):
+        return bottleneck_reference(x, w1, b1, w2, b2, w3, b3).contiguous()
+    if not any_supports(x.shape[-1], w1.shape[-1]):
+        raise ValueError(f"bottleneck_fused_any.cu takes C and M multiples "
+                         f"of 8 up to {ANY_MAX}, got {tuple(w1.shape)}")
+    return _launch_any(x, w1, b1, w2, b2, w3, b3)
 
 
 @_bottleneck_fused.register_fake

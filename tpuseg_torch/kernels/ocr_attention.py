@@ -17,6 +17,7 @@ import torch
 import torch.utils.flop_counter
 
 from tpuseg_torch.kernels import _build
+from tpuseg_torch.ops.precision import upcast
 
 # kernel launches since the last reset (chip_smoke.py reads and resets it)
 LAUNCHES = 0
@@ -31,11 +32,13 @@ _TC_WARPS = 4         # bf16 kernel: warps a block, 16 Q rows a warp tile
 def object_attention_reference(q: torch.Tensor, key: torch.Tensor,
                                val: torch.Tensor) -> torch.Tensor:
     """Plain version (tpuseg ``reference_object_attention``): q (B, N, d),
-    key/val (B, K, d) -> (B, N, d) in q's dtype."""
+    key/val (B, K, d) -> (B, N, d) in q's dtype. Products and softmax in
+    f32 for the kernel's bf16 and f32 inputs (in f64 for the model's f64
+    forward, which no kernel takes)."""
     d = q.shape[-1]
-    sim = torch.bmm(q.float(), key.float().transpose(1, 2)) * (d ** -0.5)
+    sim = torch.bmm(upcast(q), upcast(key).transpose(1, 2)) * (d ** -0.5)
     attn = torch.softmax(sim, dim=-1)
-    ctx = torch.bmm(attn.to(val.dtype).float(), val.float())
+    ctx = torch.bmm(upcast(attn.to(val.dtype)), upcast(val))
     return ctx.to(q.dtype)
 
 

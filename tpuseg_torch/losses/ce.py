@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from tpuseg_torch.ops import upcast
 from tpuseg_torch.parallel import global_sum, process_count, spatial
 
 
@@ -28,7 +29,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     labels = labels.long()
     valid = (labels >= 0) & (labels < num_classes)
     safe = torch.where(valid, labels, torch.zeros_like(labels))
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    logp = torch.log_softmax(upcast(logits), dim=-1)
     nll = -logp.gather(-1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
     world = process_count() if data_parallel else 1
@@ -38,11 +39,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def _class_weights(labels: torch.Tensor, num_classes: int,
                    upper_bound: float, norm: bool,
+                   dtype: torch.dtype,
                    data_parallel: bool = False) -> torch.Tensor:
     """Class weights from each image's label histogram (reference
     calculate_weights: loss/utils.py:87-100), the histograms summed across
-    ranks with ``data_parallel``. labels (B, H, W) long -> (B, C); labels
-    outside [0, C) are left out of the histogram."""
+    ranks with ``data_parallel``. labels (B, H, W) long -> (B, C) in
+    ``dtype`` (the log-probabilities'); labels outside [0, C) are left out
+    of the histogram."""
     b = labels.shape[0]
     valid = (labels >= 0) & (labels < num_classes)
     idx = torch.where(valid, labels, torch.full_like(labels, num_classes))
@@ -52,9 +55,9 @@ def _class_weights(labels: torch.Tensor, num_classes: int,
     bins = torch.bincount((idx.reshape(b, -1) + offset).reshape(-1),
                           minlength=b * (num_classes + 1))
     bins = global_sum(bins) if data_parallel else spatial.band_sum(bins)
-    bins = bins.reshape(b, num_classes + 1)[:, :num_classes].float()
+    bins = bins.reshape(b, num_classes + 1)[:, :num_classes].to(dtype)
     hist_norm = bins / bins.sum(dim=1, keepdim=True).clamp_min(1.0)
-    present = (bins != 0).float()
+    present = (bins != 0).to(dtype)
     if norm:
         return present * upper_bound / hist_norm.clamp_min(1e-12) + 1.0
     return present * upper_bound * (1.0 - hist_norm) + 1.0
@@ -77,15 +80,16 @@ def image_weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     b = labels.shape[0]
     valid = (labels >= 0) & (labels < num_classes)
     safe = torch.where(valid, labels, torch.zeros_like(labels))
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    logp = torch.log_softmax(upcast(logits), dim=-1)
     nll = -logp.gather(-1, safe[..., None])[..., 0]
     world = process_count() if data_parallel else 1
     if batch_weighting:
         weights = _class_weights(labels.reshape(1, -1), num_classes,
-                                 upper_bound, norm,
+                                 upper_bound, norm, logp.dtype,
                                  data_parallel=world > 1).expand(b, -1)
     else:
-        weights = _class_weights(labels, num_classes, upper_bound, norm)
+        weights = _class_weights(labels, num_classes, upper_bound, norm,
+                                 logp.dtype)
     pix_w = weights.gather(1, safe.reshape(b, -1)).reshape(safe.shape)
     pix_w = torch.where(valid, pix_w, torch.zeros_like(pix_w))
     per_image = (nll * pix_w).sum(dim=(1, 2)) / spatial.band_sum(

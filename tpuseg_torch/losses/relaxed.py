@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from tpuseg_torch.ops import upcast
 from tpuseg_torch.parallel import global_sum, process_count, spatial
 
 
@@ -29,7 +30,7 @@ def _class_weights(hist_src: torch.Tensor, num_classes: int,
     full histogram: the ignore channel counts in the denominator, then its
     weight is dropped (reference calculate_weights: loss/utils.py:165-177)."""
     hist = hist_src / hist_src.sum(dim=-1, keepdim=True).clamp_min(1.0)
-    present = (hist != 0).float()
+    present = (hist != 0).to(hist.dtype)
     if norm:
         w = present * upper_bound * (1.0 / hist.clamp_min(1e-12)) + 1.0
     else:
@@ -53,7 +54,7 @@ def relaxed_soft_nll(logits: torch.Tensor, relaxed_target: torch.Tensor,
         ranks (``losses/ce.py``).
     Returns the per-image normalised loss summed over the batch (f32)."""
     num_classes = logits.shape[-1]
-    full = relaxed_target.float()
+    full = upcast(relaxed_target)
     target = full[..., :num_classes]
 
     border_weights = target.sum(dim=-1)                      # (B, H, W)
@@ -77,7 +78,7 @@ def relaxed_soft_nll(logits: torch.Tensor, relaxed_target: torch.Tensor,
                              upper_bound, norm)
 
     # customsoftmax in f32 (reference: loss/utils.py:137-147)
-    soft = torch.softmax(logits.float(), dim=-1)
+    soft = torch.softmax(upcast(logits), dim=-1)
     border_mass = (soft * target).sum(dim=-1, keepdim=True)
     smax = torch.log(torch.maximum(soft, target * border_mass) + 1e-30)
 

@@ -42,6 +42,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from tpuseg_torch.ops import upcast
 from tpuseg_torch.ops.resize import avg_pool2d, max_pool2d
 from tpuseg_torch.parallel import global_sum, process_count, spatial
 
@@ -140,13 +141,13 @@ def rmi_loss(logits: torch.Tensor, labels: torch.Tensor,
     across ranks by DDP as it is."""
     num_classes = num_classes or logits.shape[-1]
     half_d = radius * radius
-    logits = logits.float()
+    logits = upcast(logits)
     labels = labels.long()
 
     valid = (labels >= 0) & (labels < num_classes)
-    validf = valid.float()
+    validf = valid.to(logits.dtype)
     onehot = F.one_hot(torch.where(valid, labels, torch.zeros_like(labels)),
-                       num_classes).float() * validf[..., None]
+                       num_classes).to(logits.dtype) * validf[..., None]
     world = process_count() if data_parallel else 1
     valid_pixels = validf.sum() if world == 1 else global_sum(validf.sum())
     bce = _bce_with_logits(logits, onehot, validf) * world / (
@@ -182,7 +183,7 @@ def rmi_loss(logits: torch.Tensor, labels: torch.Tensor,
                         la @ pr.transpose(2, 3)])
     la_cov, pr_cov, la_pr_cov = spatial.band_sum(covs) * inv_n
 
-    eye = torch.eye(half_d, dtype=torch.float32, device=logits.device)
+    eye = torch.eye(half_d, dtype=logits.dtype, device=logits.device)
     a_pr = max(pos_alpha / n, 1e-4)
     a_va = pos_alpha / n
     chol_pr = _safe_cholesky(pr_cov, eye, a_pr)

@@ -18,7 +18,7 @@ from tpuseg_torch.evaluation.metrics import fmt_scale
 from tpuseg_torch.models.deepv3 import DeepV3Plus
 from tpuseg_torch.models.layers import SegHead, conv
 from tpuseg_torch.models.ocrnet import to_nchw, to_nhwc
-from tpuseg_torch.ops import resize_x, scale_as
+from tpuseg_torch.ops import resize_x, scale_as, upcast
 
 
 def _scale_attn(cin: int, n: int, bn_head: bool) -> nn.Sequential:
@@ -75,7 +75,7 @@ class ASDV3P(DeepV3Plus):
         preds, feats = self._all_scales(x, scales)
         # the 1.0x features first, then the others in ascending order
         cat = [feats[1.0]] + [feats[s] for s in scales if s != 1.0]
-        attn_all = self.scale_attn(torch.cat(cat, dim=1)).float()
+        attn_all = upcast(self.scale_attn(torch.cat(cat, dim=1)))
         attn = {s: scale_as(attn_all[:, i:i + 1], x, self.align_corners)
                 for i, s in enumerate(scales)}
         return _weighted_sum(preds, attn, scales)
@@ -118,7 +118,7 @@ class ASDV3P_Paired(ASDV3P):
         pair_attn = {}
         for lo, hi in zip(scales, scales[1:]):
             pa = self.scale_attn(torch.cat([feats[lo], feats[hi]], dim=1))
-            pair_attn[lo] = scale_as(pa.float(), x, self.align_corners)
+            pair_attn[lo] = scale_as(upcast(pa), x, self.align_corners)
         # chain-normalize (reference: attnscale.py:330-345)
         attn, last = {}, None
         for lo, hi in zip(scales, scales[1:]):

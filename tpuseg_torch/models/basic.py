@@ -14,7 +14,7 @@ from tpuseg_torch.models.heads import make_aspp
 from tpuseg_torch.models.layers import SegHead, conv
 from tpuseg_torch.models.ocrnet import to_nchw, to_nhwc
 from tpuseg_torch.models.trunks import get_trunk
-from tpuseg_torch.ops import scale_as
+from tpuseg_torch.ops import scale_as, upcast
 
 
 class Basic(nn.Module):
@@ -36,7 +36,7 @@ class Basic(nn.Module):
         x = to_nchw(x)
         _, _, high = self.backbone(x)
         pred = self.seg_head(high)
-        return {"pred": to_nhwc(scale_as(pred.float(), x,
+        return {"pred": to_nhwc(scale_as(upcast(pred), x,
                                          self.align_corners))}
 
 
@@ -66,7 +66,7 @@ class ASPPModel(nn.Module):
     def forward(self, x):
         x = to_nchw(x)
         pred = self.final(self.features(x))
-        return {"pred": to_nhwc(scale_as(pred.float(), x,
+        return {"pred": to_nhwc(scale_as(upcast(pred), x,
                                          self.align_corners))}
 
 

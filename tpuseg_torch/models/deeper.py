@@ -12,7 +12,7 @@ from tpuseg_torch.models.heads import make_aspp
 from tpuseg_torch.models.layers import ConvBnRelu, conv
 from tpuseg_torch.models.ocrnet import to_nchw, to_nhwc
 from tpuseg_torch.models.trunks import get_trunk
-from tpuseg_torch.ops import resize_x
+from tpuseg_torch.ops import resize_x, upcast
 
 
 class DeeperS8(nn.Module):
@@ -48,7 +48,7 @@ class DeeperS8(nn.Module):
         y = self.conv_up2(torch.cat([y, self.convs4(s4)], dim=1))
         y = resize_x(y, 2.0, ac)
         up3 = self.conv_up3(torch.cat([y, self.convs2(s2)], dim=1))
-        return resize_x(self.conv_up5(up3).float(), 2.0, ac), up3
+        return resize_x(upcast(self.conv_up5(up3)), 2.0, ac), up3
 
     def forward(self, x):
         out, _ = self.decode(*self.features(to_nchw(x)))

@@ -15,7 +15,7 @@ from tpuseg_torch.models.heads import make_aspp
 from tpuseg_torch.models.layers import SegHead, conv
 from tpuseg_torch.models.ocrnet import to_nchw, to_nhwc
 from tpuseg_torch.models.trunks import get_trunk
-from tpuseg_torch.ops import scale_as
+from tpuseg_torch.ops import scale_as, upcast
 
 
 class DeepV3Plus(nn.Module):
@@ -54,7 +54,7 @@ class DeepV3Plus(nn.Module):
         conv_aspp = scale_as(conv_aspp, s2,
                              self.align_corners).to(conv_s2.dtype)
         cat_s4 = torch.cat([conv_s2, conv_aspp], dim=1)
-        out = scale_as(self.final(cat_s4).float(), x, self.align_corners)
+        out = scale_as(upcast(self.final(cat_s4)), x, self.align_corners)
         return out, cat_s4
 
     def forward(self, x):
@@ -84,7 +84,7 @@ class DeepV3(nn.Module):
         x = to_nchw(x)
         _, _, high = self.backbone(x)
         y = self.final(self.aspp(high))
-        return {"pred": to_nhwc(scale_as(y.float(), x, self.align_corners))}
+        return {"pred": to_nhwc(scale_as(upcast(y), x, self.align_corners))}
 
 
 def _kw(cfg):

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from tpuseg_torch.models.hrnet import remat_call
 from tpuseg_torch.models.layers import Conv2d, Norm, conv
-from tpuseg_torch.ops import global_avg_pool
+from tpuseg_torch.ops import global_avg_pool, upcast
 
 # B0 stage table: (expand, channels, repeats, stride, kernel)
 _B0_STAGES = (
@@ -79,9 +79,9 @@ class SqueezeExcite(nn.Module):
         self.conv_expand = conv(se_ch, channels, 1, bias=True)
 
     def forward(self, x):
-        s = global_avg_pool(x.float()).to(x.dtype)
+        s = global_avg_pool(upcast(x)).to(x.dtype)
         s = self.conv_expand(F.silu(self.conv_reduce(s)))
-        return x * torch.sigmoid(s.float()).to(x.dtype)
+        return x * torch.sigmoid(upcast(s)).to(x.dtype)
 
 
 class MBConv(nn.Module):

@@ -117,11 +117,13 @@ class Bottleneck(nn.Module):
 
     With ``fused_kernel``, eval-mode blocks that are the stage-1 identity
     shape (no downsample, stride 1, bf16, C == 4 * planes) run the fused
-    kernel over BN-folded weights, where the kernel ``supports`` the width
-    (on CUDA only (C, planes) == (256, 64), the stage-1 width it is laid
-    out for). ``tpuseg``'s TPU tiling conditions (batch 1, H % 16,
-    W % 128) are not needed: the CUDA kernel covers the batch and ragged
-    edges."""
+    kernel over BN-folded weights, where a kernel ``supports`` the width:
+    on CUDA, (C, planes) = (256, 64), W48's stage-1 width, runs the wgmma
+    kernel, and every other width with planes a multiple of 8 up to 256
+    the kernel of the other widths; any other width runs the unfused
+    convs, as ``tpuseg``'s gate does for shapes its tiling does not take.
+    ``tpuseg``'s TPU tiling conditions (batch 1, H % 16, W % 128) are not
+    needed: the CUDA kernels cover the batch and ragged edges."""
 
     expansion = 4
 
@@ -168,7 +170,8 @@ class Bottleneck(nn.Module):
 
     def freeze_folded(self) -> None:
         """Fold and pack now, and keep the result as non-persistent
-        buffers that the fused path reads until :meth:`thaw_folded`.
+        buffers that the fused path reads until :meth:`thaw_folded` (the
+        packed block is None but at (256, 64) on CUDA).
         ``torch.export`` cannot trace :meth:`_folded` (its cache key reads
         storage pointers and version counters, and the CUDA block is
         packed on the host); it carries these buffers as constants of the

@@ -44,6 +44,7 @@ import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tpuseg_torch.ops import upcast
 from tpuseg_torch.parallel import process_count, spatial
 
 
@@ -97,7 +98,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
     def forward(ctx, x, weight, bias, eps, valid=None):
         c = x.shape[1]
         view = (1, c, 1, 1)
-        xf = x.float()
+        xf = upcast(x)
         xt = xf if valid is None else xf.narrow(2, 0, valid)
         stats = torch.cat([xt.sum(dim=(0, 2, 3)),
                            xf.new_full((1,), xt.numel() // c)])
@@ -126,8 +127,8 @@ class _GlobalBatchNorm(torch.autograd.Function):
         valid = ctx.valid
         c = x.shape[1]
         view = (1, c, 1, 1)
-        dyf = dy.float()
-        xhat = (x.float() - mean.view(view)) * invstd.view(view)
+        dyf = upcast(dy)
+        xhat = (upcast(x) - mean.view(view)) * invstd.view(view)
         dyt, xht = ((dyf, xhat) if valid is None else
                     (dyf.narrow(2, 0, valid), xhat.narrow(2, 0, valid)))
         local = torch.cat([dyt.sum(dim=(0, 2, 3)),
@@ -184,7 +185,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         """``tpuseg``'s batch norm over n = 1 value per channel: mean = x,
         variance 0 (so the output is the bias, and x gets no gradient, as
         in ``tpuseg``), running variance updated with Bessel's factor 1."""
-        xf = x.float()
+        xf = upcast(x)
         mean = xf.mean(dim=(0, 2, 3), keepdim=True)
         xc = xf - mean
         var = (xc * xc).mean(dim=(0, 2, 3), keepdim=True)
@@ -274,7 +275,7 @@ class AttnHead(nn.Module):
         if self.drop is not None:
             x = self.drop(x)
         # sigmoid in f32: attention weights feed long fusion chains
-        return torch.sigmoid(self.conv2(x).float())
+        return torch.sigmoid(upcast(self.conv2(x)))
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:

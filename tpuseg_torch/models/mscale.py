@@ -28,7 +28,7 @@ from tpuseg_torch.models.layers import AttnHead, SegHead
 from tpuseg_torch.models.mscale_core import nscale_fuse, two_scale_fuse
 from tpuseg_torch.models.ocrnet import to_nchw, to_nhwc
 from tpuseg_torch.models.trunks import get_trunk
-from tpuseg_torch.ops import resize_x, scale_as
+from tpuseg_torch.ops import resize_x, scale_as, upcast
 
 
 class _Mscale(nn.Module):
@@ -76,7 +76,7 @@ class _Mscale(nn.Module):
             s = scales.pop()
             x = x_1x if s == 1.0 else resize_x(x_1x, s, ac)
             o = self._fwd(x, aspp_lo=aspp_lo, aspp_attn=aspp_attn)
-            p, attn = o["cls_out"].float(), o["logit_attn"].float()
+            p, attn = upcast(o["cls_out"]), upcast(o["logit_attn"])
             if s != 1.0:
                 p, attn = scale_as(p, x_1x, ac), scale_as(attn, x_1x, ac)
             if not scales:
@@ -100,7 +100,7 @@ def _fuse_aspp(aspp, aspp_lo, aspp_attn, align_corners):
     this scale's in f32 and cast back (reference: mscale.py:296-328)."""
     attn = scale_as(aspp_attn, aspp, align_corners)
     lo = scale_as(aspp_lo, aspp, align_corners)
-    return (attn * lo + (1.0 - attn) * aspp.float()).to(aspp.dtype)
+    return (attn * lo + (1.0 - attn) * upcast(aspp)).to(aspp.dtype)
 
 
 class MscaleV3Plus(_Mscale, DeepV3Plus):
@@ -185,7 +185,7 @@ class MscaleBasic(_Mscale):
     def _fwd(self, x, aspp_lo=None, aspp_attn=None):
         _, _, high = self.backbone(x)
         ac = self.align_corners
-        pred = scale_as(self.cls_head(high).float(), x, ac)
+        pred = scale_as(upcast(self.cls_head(high)), x, ac)
         attn = scale_as(self.scale_attn(high), x, ac)
         return self._outputs(pred, attn, high)
 
@@ -212,7 +212,7 @@ class MscaleASPP(_Mscale, ASPPModel):
         """(reference: mscale.py:496-511)"""
         aspp = self.features(x)
         ac = self.align_corners
-        pred = scale_as(self.final(aspp).float(), x, ac)
+        pred = scale_as(upcast(self.final(aspp)), x, ac)
         attn = scale_as(self.scale_attn(aspp), x, ac)
         return self._outputs(pred, attn, aspp)
 

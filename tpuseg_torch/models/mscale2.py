@@ -15,7 +15,7 @@ from tpuseg_torch.models.deepv3 import DeepV3Plus
 from tpuseg_torch.models.layers import AttnHead, SegHead
 from tpuseg_torch.models.ocrnet import to_nchw, to_nhwc
 from tpuseg_torch.models.trunks import get_trunk
-from tpuseg_torch.ops import resize_x, scale_as
+from tpuseg_torch.ops import resize_x, scale_as, upcast
 
 
 class _AttnHeadNoSigmoidLast(nn.Sequential):
@@ -28,7 +28,7 @@ class _AttnHeadNoSigmoidLast(nn.Sequential):
         super().__init__(*SegHead(cin, 1, bot_ch))
 
     def forward(self, x):
-        return torch.sigmoid(super().forward(x).float())
+        return torch.sigmoid(upcast(super().forward(x)))
 
 
 def _nscale2(model, x_1x, scales):
@@ -42,7 +42,7 @@ def _nscale2(model, x_1x, scales):
     for s in scales:
         x = x_1x if s == 1.0 else resize_x(x_1x, s, ac)
         p, feats = model._fwd(x)
-        p = p.float()
+        p = upcast(p)
         if pred is not None:
             last_s = scale_as(last_feats, feats, ac).to(feats.dtype)
             attn = model.scale_attn(torch.cat([feats, last_s], dim=1))
@@ -93,9 +93,9 @@ class MscaleV3Plus2(DeepV3Plus):
         feats_hi_s = scale_as(feats_hi, feats_lo, ac).to(feats_lo.dtype)
         attn = self.scale_attn(torch.cat([feats_lo, feats_hi_s], dim=1))
         attn = scale_as(attn, p_lo, ac)
-        p_lo = scale_as(attn * p_lo.float(), p_1x, ac)
+        p_lo = scale_as(attn * upcast(p_lo), p_1x, ac)
         attn_1x = scale_as(attn, p_1x, ac)
-        return {"pred": p_lo + (1.0 - attn_1x) * p_1x.float(),
+        return {"pred": p_lo + (1.0 - attn_1x) * upcast(p_1x),
                 "attn_10x": attn_1x}
 
 
@@ -125,7 +125,7 @@ class Basic2(nn.Module):
 
     def _fwd(self, x):
         _, _, high = self.backbone(x)
-        pred = scale_as(self.cls_head(high).float(), x, self.align_corners)
+        pred = scale_as(upcast(self.cls_head(high)), x, self.align_corners)
         return pred, high
 
     def forward(self, x):

@@ -16,7 +16,7 @@ from typing import Callable, Dict
 import torch
 
 from tpuseg_torch.evaluation.metrics import fmt_scale
-from tpuseg_torch.ops import resize_x, scale_as
+from tpuseg_torch.ops import resize_x, scale_as, upcast
 
 ForwardFn = Callable[[torch.Tensor], Dict[str, torch.Tensor]]
 
@@ -32,9 +32,9 @@ def two_scale_fuse(fwd: ForwardFn, x_1x: torch.Tensor, lo_scale: float = 0.5,
     lo = fwd(resize_x(x_1x, lo_scale, align_corners))
     hi = fwd_hi(x_1x, lo) if fwd_hi is not None else fwd(x_1x)
 
-    pred_05x = lo["cls_out"].float()
-    attn = lo["logit_attn"].float()
-    p_1x = hi["cls_out"].float()
+    pred_05x = upcast(lo["cls_out"])
+    attn = upcast(lo["logit_attn"])
+    p_1x = upcast(hi["cls_out"])
 
     # premultiply at low res, then upscale (reference: ocrnet.py:289-294)
     p_lo = scale_as(attn * pred_05x, p_1x, align_corners)
@@ -46,9 +46,9 @@ def two_scale_fuse(fwd: ForwardFn, x_1x: torch.Tensor, lo_scale: float = 0.5,
         "attn_05x": attn,
     }
     if "aux_out" in lo:
-        aux_lo_up = scale_as(attn * lo["aux_out"].float(), p_1x,
+        aux_lo_up = scale_as(attn * upcast(lo["aux_out"]), p_1x,
                              align_corners)
-        out["aux"] = aux_lo_up + (1.0 - attn_up) * hi["aux_out"].float()
+        out["aux"] = aux_lo_up + (1.0 - attn_up) * upcast(hi["aux_out"])
     return out
 
 
@@ -94,7 +94,7 @@ def nscale_fuse(fwd: ForwardFn, x_1x: torch.Tensor, scales,
                 aux_up = scale_as(attn_out * aux_out, pred, align_corners)
                 aux = aux_up + (1.0 - attn_up) * aux
 
-    out["pred"] = pred.float()
+    out["pred"] = upcast(pred)
     if aux is not None:
-        out["aux"] = aux.float()
+        out["aux"] = upcast(aux)
     return out

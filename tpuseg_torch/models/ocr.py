@@ -32,6 +32,7 @@ from tpuseg_torch.kernels.ocr_attention import (
     object_attention_reference,
 )
 from tpuseg_torch.models.layers import ConvNormAct, bn_relu, conv
+from tpuseg_torch.ops import upcast
 from tpuseg_torch.parallel import spatial
 
 
@@ -50,10 +51,10 @@ def spatial_gather(feats: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
     # axis 1 of (B, HW, K) runs PyTorch's strided "spatial" softmax kernel,
     # measured at 24 ms over the three scales of one 1024x2048 image on an
     # H100 (14% of the device time)
-    logits = probs.float().reshape(b, k, -1)
+    logits = upcast(probs).reshape(b, k, -1)
     if spatial.active() is None:
         p = torch.softmax(logits, dim=-1)
-        ctx = torch.bmm(p.to(feats.dtype).float(), f.float())
+        ctx = torch.bmm(upcast(p.to(feats.dtype)), upcast(f))
         return ctx.to(feats.dtype)
     v = spatial.valid_rows(probs)
     if v < probs.shape[2]:
@@ -64,7 +65,7 @@ def spatial_gather(feats: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
     # gradient (the softmax does not depend on it)
     e = torch.exp(logits - spatial.band_max(logits.amax(-1, keepdim=True)))
     p = e / spatial.band_sum(e.sum(-1, keepdim=True))
-    ctx = spatial.band_sum(torch.bmm(p.to(feats.dtype).float(), f.float()))
+    ctx = spatial.band_sum(torch.bmm(upcast(p.to(feats.dtype)), upcast(f)))
     return ctx.to(feats.dtype)
 
 

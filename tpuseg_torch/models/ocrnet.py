@@ -16,7 +16,7 @@ from tpuseg_torch.models.hrnet import HRNetSpec, HRNetV2, TINY_SPEC, W48_SPEC
 from tpuseg_torch.models.layers import AttnHead
 from tpuseg_torch.models.mscale_core import nscale_fuse, two_scale_fuse
 from tpuseg_torch.models.ocr import OCRBlock
-from tpuseg_torch.ops import scale_as
+from tpuseg_torch.ops import at_least_f32, scale_as, upcast
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -50,8 +50,8 @@ class OCRNet(nn.Module):
         cls_out, aux_out, _ = self.ocr(high)
         # cast BEFORE the resize: the f32 island includes the interpolation
         return {
-            "pred": to_nhwc(scale_as(cls_out.float(), x, self.align_corners)),
-            "aux": to_nhwc(scale_as(aux_out.float(), x, self.align_corners)),
+            "pred": to_nhwc(scale_as(upcast(cls_out), x, self.align_corners)),
+            "aux": to_nhwc(scale_as(upcast(aux_out), x, self.align_corners)),
         }
 
 
@@ -79,8 +79,8 @@ class OCRNetASPP(nn.Module):
         _, _, high = self.backbone(x)
         cls_out, aux_out, _ = self.ocr(self.aspp(high))
         return {
-            "pred": to_nhwc(scale_as(cls_out.float(), x, self.align_corners)),
-            "aux": to_nhwc(scale_as(aux_out.float(), x, self.align_corners)),
+            "pred": to_nhwc(scale_as(upcast(cls_out), x, self.align_corners)),
+            "aux": to_nhwc(scale_as(upcast(aux_out), x, self.align_corners)),
         }
 
 
@@ -124,7 +124,8 @@ class MscaleOCR(nn.Module):
         _, _, high = self.backbone(x)
         cls_out, aux_out, ocr_mid = self.ocr(high)
         attn = self.scale_attn(ocr_mid)
-        fdt = self.fusion_dtype if not self.training else torch.float32
+        fdt = (self.fusion_dtype if not self.training
+               else at_least_f32(cls_out.dtype))
         out = {
             "cls_out": scale_as(cls_out.to(fdt), x, self.align_corners),
             "logit_attn": scale_as(attn.to(fdt), x, self.align_corners),

@@ -17,7 +17,7 @@ import torch.nn as nn
 
 from tpuseg_torch.models.layers import Conv2d, Norm, conv
 from tpuseg_torch.models.resnet import LayeredTrunk, stride_plan
-from tpuseg_torch.ops import MaxPool2d, global_avg_pool
+from tpuseg_torch.ops import MaxPool2d, global_avg_pool, upcast
 
 
 class SEModule(nn.Module):
@@ -32,7 +32,7 @@ class SEModule(nn.Module):
 
     def forward(self, x):
         s = torch.relu(self.fc1(global_avg_pool(x)))
-        return x * torch.sigmoid(self.fc2(s).float()).to(x.dtype)
+        return x * torch.sigmoid(upcast(self.fc2(s))).to(x.dtype)
 
 
 class SEResNeXtBottleneck(nn.Module):

@@ -18,6 +18,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from tpuseg_torch.ops.precision import upcast
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -40,9 +42,9 @@ def device_normalize(image: torch.Tensor, mean=IMAGENET_MEAN,
         return image
     dev = image.device
     if image.dtype != torch.uint8:
-        x = image.float() / 255.0
-        return ((x - torch.tensor(mean, dtype=torch.float32, device=dev))
-                / torch.tensor(std, dtype=torch.float32, device=dev))
+        x = upcast(image) / 255.0
+        return ((x - torch.tensor(mean, dtype=x.dtype, device=dev))
+                / torch.tensor(std, dtype=x.dtype, device=dev))
     lut = _normalize_lut(tuple(float(m) for m in mean),
                          tuple(float(s) for s in std))
     c = image.shape[-1]

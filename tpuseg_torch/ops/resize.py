@@ -50,6 +50,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tpuseg_torch.ops.precision import upcast
 from tpuseg_torch.parallel import spatial
 
 
@@ -61,7 +62,7 @@ def resize_bilinear(x: torch.Tensor, size, align_corners: bool = False
     size = (int(size[0]), int(size[1]))
     if spatial.global_size(x) == size:
         return x
-    y = x.float()
+    y = upcast(x)
     if spatial.active() is not None:
         # H from global rows, then W alone (H same-size: F.interpolate's
         # identity map there)
@@ -95,7 +96,7 @@ def avg_pool2d(x: torch.Tensor, window: int, stride: int | None = None,
     """Average pool that counts the zero padding in each window's divisor
     (``count_include_pad``, torch's default; the RMI loss's downsample,
     reference: loss/rmi.py:154-155)."""
-    y, pad = _band_rows(x.float(), window, stride or window, padding, 0.0)
+    y, pad = _band_rows(upcast(x), window, stride or window, padding, 0.0)
     y = F.avg_pool2d(y, window, stride or window, pad,
                      count_include_pad=True)
     return y.to(x.dtype)
@@ -137,7 +138,7 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
         return x.mean(dim=(2, 3), keepdim=True)
     h, w = spatial.global_size(x)
     rows = x.narrow(2, 0, spatial.valid_rows(x))
-    s = spatial.band_sum(rows.float().sum(dim=(2, 3), keepdim=True))
+    s = spatial.band_sum(upcast(rows).sum(dim=(2, 3), keepdim=True))
     return (s / (h * w)).to(x.dtype)
 
 

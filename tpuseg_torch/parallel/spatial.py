@@ -67,6 +67,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from tpuseg_torch.ops.precision import at_least_f32
+
 
 @dataclass(frozen=True)
 class Bands:
@@ -415,20 +417,21 @@ def conv_rows(x: torch.Tensor, kernel: int, stride: int, padding: int,
 
 
 def _source_rows(h_in: int, h_out: int, rows: torch.Tensor,
-                 align_corners: bool):
+                 align_corners: bool, dtype: torch.dtype):
     """Bilinear source rows and weights of output ``rows`` for ``h_in ->
     h_out``: ``F.interpolate``'s coordinate map (with ``size`` given), in
-    f32 as its kernels compute it. -> (i0, i1, lam1)."""
-    r = rows.float()
+    ``dtype`` (f32 for bf16 and f32 maps, f64 for f64) as its kernels
+    compute it. -> (i0, i1, lam1)."""
+    r = rows.to(dtype)
     if align_corners:
         scale = (h_in - 1) / (h_out - 1) if h_out > 1 else 0.0
-        src = r * torch.tensor(scale, dtype=torch.float32)
+        src = r * torch.tensor(scale, dtype=dtype)
     else:
-        scale = torch.tensor(h_in / h_out, dtype=torch.float32)
+        scale = torch.tensor(h_in / h_out, dtype=dtype)
         src = (scale * (r + 0.5) - 0.5).clamp_min(0.0)
     i0 = src.long().clamp(max=h_in - 1)
     i1 = (i0 + 1).clamp(max=h_in - 1)
-    return i0, i1, (src - i0.float()).clamp(0.0, 1.0)
+    return i0, i1, (src - i0.to(dtype)).clamp(0.0, 1.0)
 
 
 def resize_rows(x: torch.Tensor, h_out: int, align_corners: bool
@@ -444,7 +447,8 @@ def resize_rows(x: torch.Tensor, h_out: int, align_corners: bool
     for i in range(bands.size):
         n = max(0, min(h, h_out - i * h))
         rows = torch.arange(i * h, i * h + n)
-        i0, i1, lam = _source_rows(h_in, h_out, rows, align_corners)
+        i0, i1, lam = _source_rows(h_in, h_out, rows, align_corners,
+                                   at_least_f32(x.dtype))
         needs.append((int(i0.min()), int(i1.max()) + 1) if n else (0, 0))
         if i == bands.index:
             mine = i0, i1, lam, n
