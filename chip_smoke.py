@@ -355,16 +355,21 @@ def _time_attention(ak, gen, card_info):
         plain = time_ms(ak.object_attention_reference, copies)
         with torch.inference_mode():
             lib = time_ms(sdpa, copies)
+            # SDPA's own device time: where the host's issue time exceeds
+            # a call's work, the events measure dispatch (PERF.md §6)
+            lib_dev, lib_host = profiled_ms(sdpa, copies)
         bnd, by = _attention_bound(*args)
         rows[s] = {"ms": ms, "kernel_ms": dev, "host_ms": host,
                    "plain_ms": plain, "library_ms": lib,
+                   "library_kernel_ms": lib_dev, "library_host_ms": lib_host,
                    "bound_ms": bnd, "bound_by": by, "max_abs_err": err}
         log(f"[kernel] ocr_attention {s}x (1,{ATTN_N[s]},256) K=19 bf16: "
             f"kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, "
             f"bound {bnd:.4f} ms ({by}), {bnd / ms:.1%} of the bound "
             f"(median of {REPS} x 10 calls over {len(copies)} input "
             f"copies); profiled: kernel {dev:.4f} ms, host {host:.4f} ms a "
-            f"call; {card_info}")
+            f"call, SDPA {lib_dev:.4f} ms, host {lib_host:.4f} ms a call; "
+            f"{card_info}")
     return rows
 
 
@@ -427,25 +432,48 @@ def _time_bottleneck(bk, gen, card_info):
     return rows
 
 
-# the kernel of the other widths: the widths timed on the 1.0x map, and the
-# one its record leads with (the [s1w32-eval] model's stage-1 width)
-BNECK_ANY_WIDTHS = ((64, 16), (128, 32), (256, 64), (512, 128))
+# the kernel of the other widths: the (C, M) and eval scale of each timed
+# shape (the [s1w32-eval] model's stage-1 width at its three scales, the
+# rest on the 1.0x map), and the one its record leads with (that width at
+# 1.0x)
+BNECK_ANY_TIMED = ((64, 16, 1.0), (128, 32, 0.5), (128, 32, 1.0),
+                   (128, 32, 2.0), (256, 64, 1.0), (512, 128, 1.0),
+                   (1024, 256, 1.0))
 BNECK_ANY_MAIN = "128x32"
+# held off the timed shapes at the ragged batch: a width that is not 4x,
+# the widest whose weights stay resident in shared memory along C = 4 M and
+# the narrowest streamed, and the widest
+BNECK_ANY_HELD = ((96, 40), (192, 48), (224, 56), (1024, 256))
+
+
+def _any_key(c: int, m: int, scale: float) -> str:
+    return f"{c}x{m}" + ("" if scale == 1.0 else f"@{scale}x")
+
+
+def _any_plan(bk, c: int, m: int, shape) -> str:
+    p = bk.any_plan(c, m, shape)
+    return (f"{'resident' if p['resident'] else 'streamed'} weights, "
+            f"{p['consumers']} consumer warpgroup(s) on {p['tiles']} "
+            f"tile(s) a round, x ring {p['x_stages']}, weight ring "
+            f"{p['w_stages']}, {p['smem'] / 1024:.1f} KB shared, N = "
+            f"{p['mp']}")
 
 
 def _check_bottleneck_any(bk, gen):
     """The kernel of the other widths vs its plain version off the timed
-    shapes, b1 > 0: (128, 32) at a ragged batch of 2 and at a batch of 3
-    smaller than two tiles, a width that is not 4x, (96, 40), and the
-    widest, (1024, 256) on 4-row tiles, at the ragged batch. Returns the
-    largest max|d|."""
+    shapes, b1 > 0: (128, 32) at a ragged batch of 2, at a batch of 3
+    smaller than two tiles and on a ragged map large enough for three
+    consumers, and each width of BNECK_ANY_HELD at the ragged batch.
+    Returns the largest max|d|."""
     worst = 0.0
-    for tag, shape, (c, m) in (("ragged", (2, 37, 75), (128, 32)),
-                               ("small", (3, 9, 13), (128, 32)),
-                               ("ragged", (2, 37, 75), (96, 40)),
-                               ("ragged", (2, 37, 75), (1024, 256))):
+    for tag, shape, (c, m) in (
+            ("ragged", (2, 37, 75), (128, 32)),
+            ("small", (3, 9, 13), (128, 32)),
+            ("ragged", (1, 255, 509), (128, 32)),
+            *(("ragged", (2, 37, 75), cm) for cm in BNECK_ANY_HELD)):
         args = _bottleneck_case(gen, *shape, c=c, m=m)
-        err = held_bottleneck(f"any-width {tag} (C, M) = ({c}, {m})",
+        err = held_bottleneck(f"any-width {tag} (C, M) = ({c}, {m}), "
+                              f"{_any_plan(bk, c, m, shape)}",
                               bk.fused_bottleneck_any(*args),
                               bk.bottleneck_reference(*args))
         worst = max(worst, err["max_abs_err"])
@@ -453,31 +481,34 @@ def _check_bottleneck_any(bk, gen):
 
 
 def _time_bottleneck_any(bk, gen, card_info):
-    """At each width of BNECK_ANY_WIDTHS on the 1.0x map (1, 256, 512, C):
-    the kernel of the other widths held against its plain version, then
-    it, the plain version and the unfused eval block ``Bottleneck(C, M)``
-    (cuDNN bf16 convs) timed; at (256, 64) the wgmma kernel, which the
-    model runs there, beside it on the same inputs. No single PyTorch call
-    computes the block, so there is no library time."""
+    """At each shape of BNECK_ANY_TIMED: the kernel of the other widths
+    held against its plain version, then it (its parameter block packed
+    once, as the model does), the plain version and the unfused eval block
+    ``Bottleneck(C, M)`` (cuDNN bf16 convs) timed; at (256, 64) the wgmma
+    kernel, which the model runs there, beside it on the same inputs. No
+    single PyTorch call computes the block, so there is no library
+    time."""
     from tpuseg_torch.models.hrnet import Bottleneck
     from tpuseg_torch.models.layers import init_weights
 
     rows = {}
-    for c, m in BNECK_ANY_WIDTHS:
+    for c, m, scale in BNECK_ANY_TIMED:
         block = Bottleneck(c, m)
         init_weights(block, torch.Generator().manual_seed(0))
         block = block.to("cuda", memory_format=torch.channels_last).eval()
-        args = _bottleneck_case(gen, 1, *BNECK_HW[1.0], c=c, m=m)
+        hw = BNECK_HW[scale]
+        args = _bottleneck_case(gen, 1, *hw, c=c, m=m)
         x, weights = args[0], args[1:]
+        blob = bk.pack_any_blob(*weights)
 
         def run(x):
-            return bk.fused_bottleneck_any(x, *weights)
+            return bk.fused_bottleneck_any(x, *weights, blob=blob)
 
         def unfused(x):
             return block(x.permute(0, 3, 1, 2))  # NCHW view of NHWC
 
-        err = held_bottleneck(f"any-width 1.0x (C, M) = ({c}, {m})", run(x),
-                              bk.bottleneck_reference(*args))
+        err = held_bottleneck(f"any-width {scale}x (C, M) = ({c}, {m})",
+                              run(x), bk.bottleneck_reference(*args))
         copies = copies_past_l2((x,), 2 * x.numel() * 2)
         ms = time_ms(run, copies)
         dev, host = profiled_ms(run, copies)
@@ -488,7 +519,7 @@ def _time_bottleneck_any(bk, gen, card_info):
         bnd, by = _bottleneck_bound(*args)
         row = {"ms": ms, "kernel_ms": dev, "host_ms": host,
                "plain_ms": plain, "unfused_ms": unfused_ms, "bound_ms": bnd,
-               "bound_by": by, **err}
+               "bound_by": by, "plan": bk.any_plan(c, m, (1, *hw)), **err}
         wgmma = ""
         if (c, m) == bk.KERNEL_SHAPE:
             packed = bk.pack_weights(*weights)
@@ -496,22 +527,24 @@ def _time_bottleneck_any(bk, gen, card_info):
                 lambda x: bk.fused_bottleneck_packed(x, packed), copies)
             wgmma = (f"; the wgmma kernel {row['wgmma_ms']:.4f} ms on the "
                      f"same inputs")
-        rows[f"{c}x{m}"] = row
-        log(f"[kernel] bottleneck any-width 1.0x x=(1,{BNECK_HW[1.0][0]},"
-            f"{BNECK_HW[1.0][1]},{c}) M={m} bf16: kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, unfused cuDNN block {unfused_ms:.4f} ms, bound "
-            f"{bnd:.4f} ms ({by}), {bnd / ms:.1%} of the bound (median of "
-            f"{REPS} x 10 calls over {len(copies)} input copies); "
-            f"profiled: kernel {dev:.4f} ms, host {host:.4f} ms a call"
-            f"{wgmma}; {card_info}")
-        del block
+        rows[_any_key(c, m, scale)] = row
+        log(f"[kernel] bottleneck any-width {scale}x x=(1,{hw[0]},{hw[1]},"
+            f"{c}) M={m} bf16 ({_any_plan(bk, c, m, (1, *hw))}): kernel "
+            f"{ms:.4f} ms, "
+            f"plain {plain:.4f} ms, unfused cuDNN block {unfused_ms:.4f} "
+            f"ms, bound {bnd:.4f} ms ({by}), {bnd / ms:.1%} of the bound "
+            f"(median of {REPS} x 10 calls over {len(copies)} input "
+            f"copies); profiled: kernel {dev:.4f} ms ({bnd / dev:.1%} of "
+            f"the bound), host {host:.4f} ms a call{wgmma}; {card_info}")
+        del block, x, args, weights, blob, copies
+        torch.cuda.empty_cache()
     return rows
 
 
 def phase_kernels(card_info: str) -> list:
     """Each kernel vs its plain version on the card, then timed at the main
     path's shapes at the three scales (the kernel of the other widths at
-    four widths on the 1.0x map). Returns the JSON records (launches
+    the shapes of BNECK_ANY_TIMED). Returns the JSON records (launches
     filled in by the main path's run)."""
     from tpuseg_torch.kernels import bottleneck_fused as bk
     from tpuseg_torch.kernels import ocr_attention as ak
@@ -734,8 +767,8 @@ def _kernel_vs_plain_in_model(tag: str, model, runner, image, label,
     S1W32_STAGE1_L1; the logits printed."""
     from tpuseg_torch.kernels import bottleneck_fused as bk
 
-    def plain(x, *weights):
-        return bk.bottleneck_reference(x, *weights).contiguous()
+    def plain(x, w1, b1, w2, b2, w3, b3, blob):
+        return bk.bottleneck_reference(x, w1, b1, w2, b2, w3, b3).contiguous()
 
     launch, seen, outs, logits = bk._launch_any, [], [], []
     # the trunk runs stage 1's blocks one by one: its output is the last's

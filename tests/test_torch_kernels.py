@@ -162,6 +162,22 @@ def test_bottleneck_supports_and_cpu_pack():
                        bk.bottleneck_reference(xt, *packed.weights))
 
 
+def test_bottleneck_supports_every_width_it_took():
+    """On CUDA the two kernels together take every (C, M) with C and M
+    multiples of 8, 8 <= C <= 1024 and 8 <= M <= 256, and nothing past
+    those: each width's answer is spelled out here, apart from the
+    kernels' own layouts, so that a narrower kernel shows."""
+    gpu = torch.device("cuda")
+    taken = [(c, m) for c in range(8, 1025, 8) for m in range(8, 257, 8)]
+    assert len(taken) == 128 * 32 and bk.ANY_MAX == (1024, 256)
+    assert all(bk.supports(gpu, c, m) for c, m in taken)
+    assert all(bk.any_supports(c, m) for c, m in taken)
+    refused = [(c, m) for c in (0, 4, 12, 1020, 1028, 1032, 2048)
+               for m in (8, 64)] + [(c, m) for c in (64, 1024)
+                                    for m in (0, 4, 60, 252, 260, 264)]
+    assert not any(bk.supports(gpu, c, m) for c, m in refused)
+
+
 def test_fold_bn_matches_jax():
     rng = np.random.RandomState(3)
     w = rng.randn(3, 3, 8, 16).astype(np.float32)            # HWIO

@@ -50,9 +50,13 @@ def test_attention_kernel(cuda, n, k, d, dtype, tol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["model", "any"])
-@pytest.mark.parametrize("c,m", [(64, 16), (128, 32), (256, 64)])
+@pytest.mark.parametrize("c,m", [
+    (64, 16), (128, 32), (256, 64), (96, 40), (512, 128),
+    (192, 48),   # the widest width along C = 4 M with resident weights
+    (224, 56)])  # the narrowest along C = 4 M with streamed weights
 @pytest.mark.parametrize("shape", [(1, 128, 256), (1, 256, 512),
-                                   (1, 512, 1024), (2, 37, 75), (3, 9, 13)])
+                                   (1, 512, 1024), (2, 37, 75), (3, 9, 13),
+                                   (1, 255, 509)])  # ragged, 3 consumers
 def test_bottleneck_kernel(cuda, shape, c, m, kernel):
     """Positive b1 (the border case), the main path's shapes at the three
     scales and ragged batches, through the kernel the model runs at the
@@ -60,12 +64,15 @@ def test_bottleneck_kernel(cuda, shape, c, m, kernel):
     of the other widths elsewhere) and through the kernel of the other
     widths (``fused_bottleneck_any``). The max |d| bound is a few bf16
     ulps of the output (|out| < 32): one wrong 8x8 tile exceeds it, where
-    it would move the whole image's L1 by far less than 2e-2."""
+    it would move the whole image's L1 by far less than 2e-2. The weights'
+    scale follows their fan-in from 0.1 at (256, 64), so that every width's
+    output keeps that magnitude."""
     g = torch.Generator().manual_seed(1)
     r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
     x = r(*shape, c).to(cuda, torch.bfloat16)
-    w1, w2, w3 = ((r(*s) * 0.1).to(cuda, torch.bfloat16)
-                  for s in ((c, m), (9, m, m), (m, c)))
+    s1, s2 = 0.1 * (256 / c) ** 0.5, 0.1 * (64 / m) ** 0.5
+    w1, w2, w3 = ((r(*s) * k).to(cuda, torch.bfloat16)
+                  for s, k in (((c, m), s1), ((9, m, m), s2), ((m, c), s2)))
     b1 = (r(m).abs() + 0.5).to(cuda)
     b2, b3 = (r(m) * 0.1).to(cuda), (r(c) * 0.1).to(cuda)
     wgmma = kernel == "model" and (c, m) == bk.KERNEL_SHAPE
@@ -82,6 +89,30 @@ def test_bottleneck_kernel(cuda, shape, c, m, kernel):
     assert _rel(got, want) < 2e-2
     assert _rel(got[:, border], want[:, border]) < 2e-2
     assert float((got.float() - want.float()).abs().max()) < 0.25
+
+
+@pytest.mark.cuda
+def test_bottleneck_any_weight_classes(cuda):
+    """Where the kernel of the other widths keeps its weights on the 1.0x
+    map: resident in shared memory up to (192, 48) along C = 4 M, streamed
+    from (224, 56) on; consumer warpgroups with a tile of their own up to
+    M = 128 (three at the narrowest resident widths, two where three do
+    not fit), two splitting one tile's channels past it; on the 0.5x map
+    (512 tiles) two consumers at (128, 32), the rounds of three splitting
+    unevenly over the SMs."""
+    classes = {cm: bk.any_plan(*cm, (1, 256, 512)) for cm in (
+        (64, 16), (128, 32), (96, 40), (192, 48), (224, 56), (256, 64),
+        (512, 128), (1024, 160), (1024, 256))}
+    assert [cm for cm, p in classes.items() if p["resident"]] == [
+        (64, 16), (128, 32), (96, 40), (192, 48)]
+    assert [cm for cm, p in classes.items() if p["consumers"] == 3] == [
+        (64, 16), (128, 32)]
+    assert [cm for cm, p in classes.items() if p["tiles"] == 1] == [
+        (1024, 160), (1024, 256)]
+    assert all(p["consumers"] >= 2 and p["smem"] <= 232448
+               and p["x_stages"] >= 2 and (p["resident"] or p["w_stages"] >= 2)
+               for p in classes.values())
+    assert bk.any_plan(128, 32, (1, 128, 256))["consumers"] == 2
 
 
 @pytest.mark.cuda

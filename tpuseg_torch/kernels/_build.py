@@ -38,9 +38,15 @@ SIGNATURES = {
     "tpuseg_bottleneck_param_bytes": (),
     # host pointers: w1, b1, w2, b2, w3, b3 -> the parameter block
     "tpuseg_bottleneck_pack": (_P, _P, _P, _P, _P, _P, _P),
-    # x, w1, b1, w2, b2, w3, b3, out, batch, h, w, c, m, stream
-    "tpuseg_bottleneck_any": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _I, _I, _P),
+    # x, packed parameter block, its bytes, out, batch, h, w, c, m, stream
+    "tpuseg_bottleneck_any": (_P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
+    # c, m -> bytes of the packed parameter block
+    "tpuseg_bottleneck_any_param_bytes": (_I, _I),
+    # host pointers: w1, b1, w2, b2, w3, b3, c, m -> the parameter block
+    "tpuseg_bottleneck_any_pack": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # c, m, batch, h, w -> int[7]: resident, consumers, tiles a round,
+    # x stages, w stages, smem, MP
+    "tpuseg_bottleneck_any_plan": (_I, _I, _I, _I, _I, _P),
 }
 
 

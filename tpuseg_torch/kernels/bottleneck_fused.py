@@ -9,9 +9,10 @@ and how it is laid out:
 
 - ``csrc/bottleneck_fused.cu`` (wgmma + TMA, weights resident in shared
   memory) at HRNet's stage-1 width, (C, M) = KERNEL_SHAPE = (256, 64);
-- ``csrc/bottleneck_fused_any.cu`` (mma.sync, weights streamed through
-  L2) at every other (C, M) with C and M multiples of 8, C <= 1024 and
-  M <= 256 (ANY_MAX): see :func:`supports`.
+- ``csrc/bottleneck_fused_any.cu`` (persistent wgmma + TMA halo windows;
+  weights resident in shared memory where they fit, else streamed in
+  chunks through a TMA ring) at every other (C, M) with C and M multiples
+  of 8, C <= 1024 and M <= 256 (ANY_MAX): see :func:`supports`.
 
 Both compute the block's math, i.e. ``reference_bottleneck``: the 3x3
 reads zero at taps outside the image. (The TPU kernel reads relu(b1)
@@ -23,11 +24,11 @@ Folded weights, NHWC-friendly as in ``tpuseg``:
   w3 (M, C)      b3 (C,)   conv3 1x1 + bn3
 weights bf16, biases f32.
 
-At (256, 64) the CUDA kernel reads its weights from one parameter block
-in the layout of its shared memory, which the CUDA source alone defines
-and packs (:func:`pack_weights`, built once per weight state by the model
-and copied into each block with one bulk copy). The kernel of the other
-widths reads the folded weights as they are and needs no block.
+Each CUDA kernel reads its weights from one parameter block in the layout
+its products read, which its CUDA source alone defines and packs on the
+host (:func:`pack_weights`, built once per weight state by the model):
+at (256, 64) ``tpuseg_bottleneck_pack``, at the other widths
+``tpuseg_bottleneck_any_pack``.
 
 Dispatch: a CPU tensor takes :func:`bottleneck_reference`; a CUDA tensor
 launches the kernel of its width or raises. There is no fallback. The
@@ -89,7 +90,8 @@ def bottleneck_reference(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
 
 class PackedWeights(NamedTuple):
     """Folded weights (``weights`` = w1, b1, w2, b2, w3, b3) and, for CUDA
-    tensors, the kernel's parameter block built from them."""
+    tensors of a width a kernel takes, its parameter block built from
+    them."""
     weights: tuple
     blob: Optional[torch.Tensor]
 
@@ -123,28 +125,69 @@ def supports(device: torch.device, c: int, m: int) -> bool:
     return device.type == "cpu" or any_supports(c, m)
 
 
+def _host(weights) -> list:
+    """The folded weights in host memory, as the packers read them: bf16
+    weights, f32 biases."""
+    return [t.detach().to("cpu", torch.float32 if i % 2 else torch.bfloat16)
+            .contiguous() for i, t in enumerate(weights)]
+
+
 def pack_blob(w1, b1, w2, b2, w3, b3) -> torch.Tensor:
-    """The kernel's parameter block, a uint8 tensor on the weights' device:
-    packed on the host by ``csrc/bottleneck_fused.cu``'s
+    """The (256, 64) kernel's parameter block, a uint8 tensor on the
+    weights' device: packed on the host by ``csrc/bottleneck_fused.cu``'s
     ``tpuseg_bottleneck_pack``, which owns its layout."""
     lib = _build.library()
-    host = [t.detach().to("cpu", torch.float32 if i % 2 else torch.bfloat16)
-            .contiguous() for i, t in enumerate((w1, b1, w2, b2, w3, b3))]
+    host = _host((w1, b1, w2, b2, w3, b3))
     blob = torch.empty(lib.tpuseg_bottleneck_param_bytes(), dtype=torch.uint8)
     _build.check(lib.tpuseg_bottleneck_pack(
         *(t.data_ptr() for t in host), blob.data_ptr()), "bottleneck pack")
     return blob.to(w1.device)
 
 
+def pack_any_blob(w1, b1, w2, b2, w3, b3) -> torch.Tensor:
+    """The parameter block of the kernel of the other widths at (C, M) =
+    w1's shape, a uint8 tensor on the weights' device: packed on the host
+    by ``csrc/bottleneck_fused_any.cu``'s ``tpuseg_bottleneck_any_pack``,
+    which owns its layout."""
+    c, m = w1.shape
+    lib = _build.library()
+    host = _host((w1, b1, w2, b2, w3, b3))
+    blob = torch.empty(lib.tpuseg_bottleneck_any_param_bytes(c, m),
+                       dtype=torch.uint8)
+    _build.check(lib.tpuseg_bottleneck_any_pack(
+        *(t.data_ptr() for t in host), c, m, blob.data_ptr()),
+        "bottleneck_fused_any pack")
+    return blob.to(w1.device)
+
+
+def any_plan(c: int, m: int, shape) -> dict:
+    """How ``csrc/bottleneck_fused_any.cu`` runs (C, M) on an input of
+    ``shape`` (B, H, W) on the current card, from its host code: weights
+    resident or streamed, consumer warpgroups a block, output tiles a round
+    (1: the consumers split one tile's channels), x and weight ring stages,
+    shared memory a block, and MP (M padded to the products' N)."""
+    import ctypes
+
+    got = (ctypes.c_int * 7)()
+    _build.check(_build.library().tpuseg_bottleneck_any_plan(
+        c, m, *shape, ctypes.addressof(got)), "bottleneck_fused_any plan")
+    return dict(zip(("resident", "consumers", "tiles", "x_stages",
+                     "w_stages", "smem", "mp"), got))
+
+
 def pack_weights(w1, b1, w2, b2, w3, b3) -> PackedWeights:
-    """Folded weights ready for :func:`fused_bottleneck_packed`: the
-    parameter block is built for CUDA weights of KERNEL_SHAPE, the width
-    the wgmma kernel takes; at any other width it is None."""
+    """Folded weights ready for :func:`fused_bottleneck_packed`: for CUDA
+    weights the parameter block of the kernel that takes their width
+    (KERNEL_SHAPE: the wgmma kernel's; any other width
+    :func:`any_supports`: the kernel of the other widths'); else None."""
     _check_weights(w1.shape[0], w1, b1, w2, b2, w3, b3)
     weights = (w1, b1, w2, b2, w3, b3)
     blob = None
-    if w1.device.type == "cuda" and tuple(w1.shape) == KERNEL_SHAPE:
-        blob = pack_blob(*weights)
+    if w1.device.type == "cuda":
+        if tuple(w1.shape) == KERNEL_SHAPE:
+            blob = pack_blob(*weights)
+        elif any_supports(*w1.shape):
+            blob = pack_any_blob(*weights)
     return PackedWeights(weights, blob)
 
 
@@ -196,6 +239,11 @@ def _check_call(x, w1, b1, w2, b2, w3, b3, blob):
     if (c, m) == KERNEL_SHAPE and (blob is None or blob.device != x.device):
         raise ValueError("CUDA weights of (C, M) = (256, 64) need the packed "
                          "parameter block (pack_weights) on x's device")
+    if blob is not None and (blob.device != x.device
+                             or blob.dtype != torch.uint8 or blob.dim() != 1):
+        raise ValueError(f"the packed parameter block must be a uint8 vector "
+                         f"on x's device, got {blob.dtype} "
+                         f"{tuple(blob.shape)} on {blob.device}")
 
 
 @torch.library.custom_op("tpuseg_torch::bottleneck_fused", mutates_args=())
@@ -208,7 +256,9 @@ def _bottleneck_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         # contiguous, as the shape function and the kernel give it
         return bottleneck_reference(x, w1, b1, w2, b2, w3, b3).contiguous()
     if tuple(w1.shape) != KERNEL_SHAPE:
-        return _launch_any(x, w1, b1, w2, b2, w3, b3)
+        if blob is None:  # packed once a call (the model packs once)
+            blob = pack_any_blob(w1, b1, w2, b2, w3, b3)
+        return _launch_any(x, w1, b1, w2, b2, w3, b3, blob)
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("x must be contiguous and 16-byte aligned")
     b, h, w, _ = x.shape
@@ -225,11 +275,12 @@ def _bottleneck_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return out
 
 
-def _launch_any(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
+def _launch_any(x, w1, b1, w2, b2, w3, b3, blob) -> torch.Tensor:
     """``csrc/bottleneck_fused_any.cu`` over CUDA tensors that
-    :func:`_check_call` has passed."""
-    for name, t in zip(("x", "w1", "b1", "w2", "b2", "w3", "b3"),
-                       (x, w1, b1, w2, b2, w3, b3)):
+    :func:`_check_call` has passed and the parameter block packed from
+    w1..b3 (:func:`pack_any_blob`); the kernel reads the weights from the
+    block alone."""
+    for name, t in (("x", x), ("blob", blob)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              f"aligned")
@@ -240,23 +291,30 @@ def _launch_any(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     global ANY_LAUNCHES
     lib = _build.library()
     err = lib.tpuseg_bottleneck_any(
-        *(t.data_ptr() for t in (x, w1, b1, w2, b2, w3, b3, out)), b, h, w,
+        x.data_ptr(), blob.data_ptr(), blob.numel(), out.data_ptr(), b, h, w,
         c, w1.shape[-1], torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "bottleneck_fused_any")
     ANY_LAUNCHES += 1
     return out
 
 
-def fused_bottleneck_any(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
+def fused_bottleneck_any(x, w1, b1, w2, b2, w3, b3,
+                         blob: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel of the other widths at any width it takes, (256, 64)
     included, where the model runs the wgmma kernel: so the two can be
-    timed side by side. A CPU tensor takes the plain version."""
+    timed side by side. ``blob``: its parameter block packed once
+    (:func:`pack_any_blob`), else packed in this call. A CPU tensor takes
+    the plain version."""
     if _check_inputs(x, w1, b1, w2, b2, w3, b3):
         return bottleneck_reference(x, w1, b1, w2, b2, w3, b3).contiguous()
     if not any_supports(x.shape[-1], w1.shape[-1]):
         raise ValueError(f"bottleneck_fused_any.cu takes C and M multiples "
                          f"of 8 up to {ANY_MAX}, got {tuple(w1.shape)}")
-    return _launch_any(x, w1, b1, w2, b2, w3, b3)
+    if blob is None:
+        blob = pack_any_blob(w1, b1, w2, b2, w3, b3)
+    elif blob.device != x.device:
+        raise ValueError(f"blob on {blob.device}, x on {x.device}")
+    return _launch_any(x, w1, b1, w2, b2, w3, b3, blob)
 
 
 @_bottleneck_fused.register_fake

@@ -171,7 +171,7 @@ class Bottleneck(nn.Module):
     def freeze_folded(self) -> None:
         """Fold and pack now, and keep the result as non-persistent
         buffers that the fused path reads until :meth:`thaw_folded` (the
-        packed block is None but at (256, 64) on CUDA).
+        packed block is None on the CPU).
         ``torch.export`` cannot trace :meth:`_folded` (its cache key reads
         storage pointers and version counters, and the CUDA block is
         packed on the host); it carries these buffers as constants of the
