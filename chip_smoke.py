@@ -616,20 +616,38 @@ def _run_cli(argv: list):
 KERNELS = ("ocr_attention", "bottleneck_fused", "bottleneck_fused_any")
 
 
-def reset_launches() -> None:
-    """Every kernel's launch count to 0."""
-    from tpuseg_torch.kernels import bottleneck_fused as bk
-    from tpuseg_torch.kernels import ocr_attention as ak
+# the program's launch counter of each (``tpuseg_torch.utils.profiling``)
+LAUNCH_COUNTERS = ("kernel.ocr_attention.launches",
+                   "kernel.bottleneck.launches",
+                   "kernel.bottleneck_any.launches")
 
-    ak.LAUNCHES = bk.LAUNCHES = bk.ANY_LAUNCHES = 0
+
+def reset_launches() -> None:
+    """Every counter of the program to 0, the kernels' launches among
+    them."""
+    from tpuseg_torch.utils.profiling import reset_counters
+
+    reset_counters()
 
 
 def launch_counts() -> dict:
     """{kernel: launches since the last :func:`reset_launches`}."""
-    from tpuseg_torch.kernels import bottleneck_fused as bk
-    from tpuseg_torch.kernels import ocr_attention as ak
+    from tpuseg_torch.utils.profiling import counters
 
-    return dict(zip(KERNELS, (ak.LAUNCHES, bk.LAUNCHES, bk.ANY_LAUNCHES)))
+    now = counters()
+    return {k: now.get(c, 0) for k, c in zip(KERNELS, LAUNCH_COUNTERS)}
+
+
+def sp_collectives() -> dict:
+    """{"counts": {kind: sp collectives}, "seconds": {kind: their host
+    seconds}} since the program's counters were last reset."""
+    from tpuseg_torch.parallel import spatial
+    from tpuseg_torch.utils.profiling import counters
+
+    now = counters()
+    return {"counts": {k: now.get(f"sp.{k}", 0) for k in spatial.KINDS},
+            "seconds": {k: now.get(f"sp.{k}.host_s", 0.0)
+                        for k in spatial.KINDS}}
 
 
 def _hold_launches(tag: str, launches: dict, forwards: int,
@@ -3441,6 +3459,7 @@ def _sp_steps(inp, mesh=None, copies: int = 1) -> dict:
     from tpuseg_torch.config import make_config
     from tpuseg_torch.models import get_model
     from tpuseg_torch.parallel import shard_batch_spatial, spatial
+    from tpuseg_torch.utils.profiling import reset_counters
 
     model = get_model(make_config({**inp["sets"], "loss.loss_type": "ce"}))
     model = model.to("cuda", memory_format=torch.channels_last).train()
@@ -3454,7 +3473,7 @@ def _sp_steps(inp, mesh=None, copies: int = 1) -> dict:
     model.load_state_dict(inp["state"])
     cfg = make_config({**inp["sets"], "loss.loss_type": "ce"})
     step, opt = _train_step_of(cfg, model)
-    spatial.reset_counts()
+    reset_counters()
     with spatial.sharded(None if mesh is None else mesh.bands):
         # a band's rows enter the context's table of map heights
         batch = whole if mesh is None else shard_batch_spatial(mesh, whole)
@@ -3462,8 +3481,7 @@ def _sp_steps(inp, mesh=None, copies: int = 1) -> dict:
                  for k, v in batch.items()}
         loss = float(step(net, opt, batch, 0)["loss"])
     return {"ce": {
-        "loss": loss, "counts": dict(spatial.COUNTS),
-        "seconds": dict(spatial.SECONDS),
+        "loss": loss, **sp_collectives(),
         "grads": {n: p.grad.detach().cpu()
                   for n, p in model.named_parameters()},
         "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
@@ -3733,6 +3751,7 @@ def _sp_zoo_step(model, init: dict, cfg, batch: dict, mesh=None,
     statistics (on the host) and the sp collectives with their host
     seconds."""
     from tpuseg_torch.parallel import shard_batch_spatial, spatial
+    from tpuseg_torch.utils.profiling import reset_counters
 
     model.load_state_dict(init)
     _masks(model, masks)
@@ -3757,7 +3776,7 @@ def _sp_zoo_step(model, init: dict, cfg, batch: dict, mesh=None,
 
         hooks = [m.register_forward_hook(record(n))
                  for n, m in model.named_modules()]
-    spatial.reset_counts()
+    reset_counters()
     torch.manual_seed(SP_ZOO_SEED)
     t0 = time.perf_counter()
     try:
@@ -3772,8 +3791,7 @@ def _sp_zoo_step(model, init: dict, cfg, batch: dict, mesh=None,
         for h in hooks:
             h.remove()
     return {"loss": loss, "s": time.perf_counter() - t0, "nchw": nchw,
-            "counts": dict(spatial.COUNTS),
-            "seconds": dict(spatial.SECONDS),
+            **sp_collectives(),
             "grads": {n: p.grad.detach().cpu()
                       for n, p in model.named_parameters()},
             "params": {n: p.detach().cpu()

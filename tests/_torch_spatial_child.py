@@ -77,6 +77,7 @@ from tpuseg_torch.parallel import (
 from tpuseg_torch.train import loop
 from tpuseg_torch.train.optim import make_optimizer
 from tpuseg_torch.train.step import make_train_step
+from tpuseg_torch.utils import profiling
 
 
 def _grad_case(fn, xs, dy, bands, whole_out=False):
@@ -117,6 +118,27 @@ def _head_case(case, bands):
 
 
 def ops(inp, bands):
+    """Every op case on this rank's band, and ``collectives``: the sp
+    collectives issued by kind, tallied at ``spatial._all_reduce``, beside
+    the program's counters over the same cases."""
+    profiling.reset_counters()
+    tally = dict.fromkeys(spatial.KINDS, 0)
+    all_reduce = spatial._all_reduce
+
+    def counted(t, group, kind, *args, **kwargs):
+        tally[kind] += 1
+        return all_reduce(t, group, kind, *args, **kwargs)
+
+    spatial._all_reduce = counted
+    try:
+        res = _ops(inp, bands)
+    finally:
+        spatial._all_reduce = all_reduce
+    res["collectives"] = (tally, profiling.counters())
+    return res
+
+
+def _ops(inp, bands):
     res = {"conv": {}, "resize": {}, "pool": {}, "rmi_pool": {}, "loss": {},
            "head": {}}
     for name, case in inp["conv"].items():
@@ -279,7 +301,7 @@ def zoo_step(case, model, mesh=None, moved: bool = False):
     lc = cfg.loss
     step = make_train_step(criterion, schedule, ocr_alpha=lc.ocr_alpha,
                            supervised_mscale_wt=lc.supervised_mscale_wt)
-    spatial.reset_counts()
+    profiling.reset_counters()
     torch.manual_seed(ZOO_SEED)
     with spatial.sharded(None if mesh is None else mesh.bands):
         batch = {k: case[k] for k in ("image", "label")}
@@ -287,7 +309,9 @@ def zoo_step(case, model, mesh=None, moved: bool = False):
             batch = shard_batch_spatial(mesh, batch)
         batch = {k: torch.from_numpy(v.copy()) for k, v in batch.items()}
         loss = float(step(net, opt, batch, 0)["loss"])
-    return {"loss": loss, "counts": dict(spatial.COUNTS),
+    counts = profiling.counters()
+    return {"loss": loss,
+            "counts": {k: counts.get(f"sp.{k}", 0) for k in spatial.KINDS},
             "grads": {n: p.grad for n, p in model.named_parameters()},
             "params": {n: p.detach().clone()
                        for n, p in model.named_parameters()},

@@ -9,6 +9,12 @@ import torch
 
 from tpuseg_torch.kernels import bottleneck_fused as bk
 from tpuseg_torch.kernels import ocr_attention as ak
+from tpuseg_torch.utils.profiling import counters
+
+
+def _launches(*kernels) -> tuple:
+    now = counters()
+    return tuple(now.get(f"kernel.{k}.launches", 0) for k in kernels)
 
 
 @pytest.fixture
@@ -40,10 +46,10 @@ def test_attention_kernel(cuda, n, k, d, dtype, tol):
     g = torch.Generator().manual_seed(0)
     q, key, val = (torch.randn(2, m, d, generator=g).to(cuda, dtype)
                    for m in (n, k, k))
-    before = ak.LAUNCHES
+    before, = _launches("ocr_attention")
     got = ak.fused_object_attention(q, key, val)
     torch.cuda.synchronize()
-    assert ak.LAUNCHES == before + 1
+    assert _launches("ocr_attention") == (before + 1,)
     want = ak.object_attention_reference(q, key, val)
     assert float((got.float() - want.float()).abs().max()) < tol
 
@@ -76,12 +82,12 @@ def test_bottleneck_kernel(cuda, shape, c, m, kernel):
     b1 = (r(m).abs() + 0.5).to(cuda)
     b2, b3 = (r(m) * 0.1).to(cuda), (r(c) * 0.1).to(cuda)
     wgmma = kernel == "model" and (c, m) == bk.KERNEL_SHAPE
-    before = bk.LAUNCHES, bk.ANY_LAUNCHES
+    before = _launches("bottleneck", "bottleneck_any")
     run = bk.fused_bottleneck if kernel == "model" else \
         bk.fused_bottleneck_any
     got = run(x, w1, b1, w2, b2, w3, b3)
     torch.cuda.synchronize()
-    assert (bk.LAUNCHES, bk.ANY_LAUNCHES) == (
+    assert _launches("bottleneck", "bottleneck_any") == (
         before[0] + wgmma, before[1] + (not wgmma))
     want = bk.bottleneck_reference(x, w1, b1, w2, b2, w3, b3)
     border = torch.ones(shape[1:], dtype=torch.bool, device=cuda)

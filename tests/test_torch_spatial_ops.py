@@ -651,6 +651,19 @@ def test_loss_on_bands(clusters, name):
         assert _max_diff(grad, w["grad"]) <= TOL
 
 
+@pytest.mark.parametrize("key", ["", *UNEVEN_SP])
+def test_collectives_count_in_the_program_counters(clusters, key):
+    """Every sp collective a rank issued over its op cases counts once
+    under its kind (``sp.halo``, ``sp.sum``, ``sp.max``) in the program's
+    counters, as ``spatial.COUNTS`` counted it, and its host seconds in
+    ``sp.<kind>.host_s``."""
+    for rank in clusters[key][0]:
+        tally, counts = rank["collectives"]
+        assert all(n > 0 for n in tally.values()), tally
+        assert {k: counts.get(f"sp.{k}", 0) for k in spatial.KINDS} == tally
+        assert all(counts[f"sp.{k}.host_s"] > 0 for k in spatial.KINDS)
+
+
 def test_padded_layout():
     """The layout's table of heights, without a process group: a map of H
     rows is held as bands of ceil(H / sp) rows, its true rows a prefix of

@@ -295,6 +295,10 @@ def test_trainer_profile_steps(fake_cityscapes, tmp_path):
     trainer.train_epoch(0)
     traces = os.listdir(tmp_path / "trace")
     assert traces and all(t.endswith(".json") for t in traces)
+    # the trace carries the step's layer spans
+    text = (tmp_path / "trace" / traces[0]).read_text()
+    assert all(f'"{name}"' in text for name in (
+        "train.forward", "train.backward", "train.optimizer", "model.trunk"))
 
 
 def test_checkpoint_retention_and_snapshot(tmp_path):

@@ -223,10 +223,12 @@ class TrainConfig:
     resume: str | None = None         # full resume: params+opt+epoch
     snapshot: str | None = None       # weights-only warm start
     test_mode: bool = False           # truncate epochs/iters for smoke tests
-    # capture a jax.profiler device trace (TensorBoard/Perfetto) of this
-    # many steps at the start of the first epoch, skipping the compile
-    # step; written to <logdir>/trace. 0 = off. (SURVEY §5.1 TPU plan —
-    # the reference has only wall-clock batch timing, train.py:478-516)
+    # capture a torch.profiler host and device trace of this many steps
+    # at the start of the first epoch, after its first step (cuDNN's
+    # algorithm choice); written to <logdir>/trace as a Chrome trace
+    # (Perfetto) that carries the program's layer spans
+    # (utils/profiling.py SPANS). 0 = off. (The reference has only
+    # wall-clock batch timing, train.py:478-516)
     profile_steps: int = 0
 
 

@@ -20,6 +20,7 @@ import torch
 from tpuseg_torch.evaluation.metrics import fast_hist_torch, fmt_scale
 from tpuseg_torch.ops import device_label, device_normalize, resize_bilinear
 from tpuseg_torch.ops.normalize import IMAGENET_MEAN, IMAGENET_STD
+from tpuseg_torch.utils.profiling import count, span
 
 # batches between accumulator drains (one small device->host read each)
 DRAIN_EVERY = 8
@@ -60,60 +61,62 @@ def make_eval_forward(model, num_classes: int, scales=(1.0,),
     across wire formats (tpuseg inference.py:85-95)."""
 
     def forward(image, label, acc, valid_hw=None):
-        image = device_normalize(image, mean, std)
-        label = device_label(label)
-        if valid_hw is not None:
-            h, w = image.shape[1:3]
-            dev = image.device
-            mask = ((torch.arange(h, device=dev) < valid_hw[0])[:, None]
-                    & (torch.arange(w, device=dev) < valid_hw[1])[None, :])
-            image = image * mask[None, :, :, None].to(image.dtype)
-        input_size = tuple(image.shape[1:3])
-        flips = (1, 0) if do_flip else (0,)
-        output = 0.0
-        output_dict = {}
-        per_scale = {s: 0.0 for s in scales} if len(scales) > 1 else {}
-        for flip in flips:
-            for scale in scales:
-                x = torch.flip(image, dims=[2]) if flip else image
-                if scale != 1.0:
-                    size = [round(s * scale) for s in input_size]
-                    x = _resize_nhwc(x, size, align_corners)
-                odict = model(x)
-                pred = odict["pred"].float()
-                if not is_mscale:
-                    output_dict[fmt_scale("pred", scale)] = pred
-                if flip == 0 and scale == scales[0]:
-                    # per-scale assets of the canonical orientation
-                    for k, v in odict.items():
-                        if k.startswith(("pred_", "attn_")):
-                            output_dict[k] = v.float()
-                if scale != 1.0:
-                    pred = _resize_nhwc(pred, input_size, align_corners)
-                pred = torch.flip(pred, dims=[2]) if flip else pred
-                output = output + pred
-                if per_scale:
-                    per_scale[scale] = per_scale[scale] + pred
-        output = output / (len(scales) * len(flips))
+        with span("eval.forward"):
+            image = device_normalize(image, mean, std)
+            label = device_label(label)
+            if valid_hw is not None:
+                h, w = image.shape[1:3]
+                dev = image.device
+                mask = ((torch.arange(h, device=dev) < valid_hw[0])[:, None]
+                        & (torch.arange(w, device=dev)
+                           < valid_hw[1])[None, :])
+                image = image * mask[None, :, :, None].to(image.dtype)
+            input_size = tuple(image.shape[1:3])
+            flips = (1, 0) if do_flip else (0,)
+            output = 0.0
+            output_dict = {}
+            per_scale = {s: 0.0 for s in scales} if len(scales) > 1 else {}
+            for flip in flips:
+                for scale in scales:
+                    x = torch.flip(image, dims=[2]) if flip else image
+                    if scale != 1.0:
+                        size = [round(s * scale) for s in input_size]
+                        x = _resize_nhwc(x, size, align_corners)
+                    odict = model(x)
+                    pred = odict["pred"].float()
+                    if not is_mscale:
+                        output_dict[fmt_scale("pred", scale)] = pred
+                    if flip == 0 and scale == scales[0]:
+                        # per-scale assets of the canonical orientation
+                        for k, v in odict.items():
+                            if k.startswith(("pred_", "attn_")):
+                                output_dict[k] = v.float()
+                    if scale != 1.0:
+                        pred = _resize_nhwc(pred, input_size, align_corners)
+                    pred = torch.flip(pred, dims=[2]) if flip else pred
+                    output = output + pred
+                    if per_scale:
+                        per_scale[scale] = per_scale[scale] + pred
+            output = output / (len(scales) * len(flips))
 
-        prob = torch.softmax(output, dim=-1).amax(dim=-1)
-        prediction = output.argmax(dim=-1).to(torch.int32)
-        acc["hist"] += fast_hist_torch(prediction, label, num_classes)
-        for s, v in per_scale.items():
-            acc["scale_hists"][s] += fast_hist_torch(v.argmax(dim=-1), label,
-                                                     num_classes)
-        if criterion is not None:
-            # padded label pixels are ignore: the masked mean is exact
-            bs = image.shape[0]
-            acc["loss_sum"] += criterion(output, label).float() * bs
-            acc["loss_n"] += bs
-
-        assets = {}
-        for k, v in output_dict.items():
-            if k.startswith("attn_"):
-                assets[k] = v
-            elif k.startswith("pred_"):
-                assets[k] = v.argmax(dim=-1).to(torch.int32)
+        with span("eval.score"):
+            prob = torch.softmax(output, dim=-1).amax(dim=-1)
+            prediction = output.argmax(dim=-1).to(torch.int32)
+            acc["hist"] += fast_hist_torch(prediction, label, num_classes)
+            for s, v in per_scale.items():
+                acc["scale_hists"][s] += fast_hist_torch(
+                    v.argmax(dim=-1), label, num_classes)
+            if criterion is not None:
+                # padded label pixels are ignore: the masked mean is exact
+                bs = image.shape[0]
+                acc["loss_sum"] += criterion(output, label).float() * bs
+                acc["loss_n"] += bs
+            assets = {}
+            for k, v in output_dict.items():
+                if k.startswith("attn_"):
+                    assets[k] = v
+                elif k.startswith("pred_"):
+                    assets[k] = v.argmax(dim=-1).to(torch.int32)
         return output, prediction, prob, assets
 
     return forward
@@ -142,6 +145,7 @@ class EvalRunner:
         self.device = torch.device(device)
         self.scale_hist_scales = tuple(scales) if len(scales) > 1 else ()
         self.has_criterion = criterion is not None
+        self.shapes: set = set()  # the (B, H, W) batches run so far
         self.forward = make_eval_forward(model, num_classes, scales, do_flip,
                                          align_corners, is_mscale, criterion,
                                          mean, std)
@@ -161,10 +165,11 @@ class EvalRunner:
     def drain(self, acc):
         """Read an accumulator back to the host (one sync). Returns
         (hist f64, {scale: hist f64}, loss_sum, loss_n)."""
-        return (acc["hist"].cpu().numpy().astype(np.float64),
-                {s: v.cpu().numpy().astype(np.float64)
-                 for s, v in acc["scale_hists"].items()},
-                float(acc["loss_sum"]), float(acc["loss_n"]))
+        with span("eval.drain"):
+            return (acc["hist"].cpu().numpy().astype(np.float64),
+                    {s: v.cpu().numpy().astype(np.float64)
+                     for s, v in acc["scale_hists"].items()},
+                    float(acc["loss_sum"]), float(acc["loss_n"]))
 
     def _pad(self, image: np.ndarray, label: np.ndarray):
         m = self.pad_multiple
@@ -196,7 +201,12 @@ class EvalRunner:
         if self.pad_multiple:
             image, label, orig_hw = self._pad(np.asarray(image),
                                               np.asarray(label))
-        image, label = self._to_device(image), self._to_device(label)
+        with span("eval.upload"):
+            image, label = self._to_device(image), self._to_device(label)
+        if tuple(image.shape[:3]) not in self.shapes:
+            # a new (B, H, W): cuDNN chooses its algorithms again
+            self.shapes.add(tuple(image.shape[:3]))
+            count("eval.new_shapes")
         output, pred, prob, assets = self.forward(image, label, acc, orig_hw)
         if orig_hw is not None:
             h, w = orig_hw

@@ -18,7 +18,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
+
+from tpuseg_torch.utils.profiling import count
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpuseg_torch"
@@ -60,7 +63,9 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile the kernels unless a library of the same sources exists."""
+    """Compile the kernels unless a library of the same sources exists (a
+    build counts in the counters ``kernel.builds`` and
+    ``kernel.build_s``)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         h.update(name.encode())
@@ -68,6 +73,7 @@ def build() -> Path:
     so = BUILD_DIR / f"libtpuseg_kernels_{h.hexdigest()[:16]}.so"
     if so.exists():
         return so
+    t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
@@ -87,6 +93,8 @@ def build() -> Path:
         o.unlink()
     so.with_suffix(".log").write_text("".join(log))
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    count("kernel.builds")
+    count("kernel.build_s", time.perf_counter() - t0)
     return so
 
 

@@ -46,11 +46,7 @@ import torch.nn.functional as F
 import torch.utils.flop_counter
 
 from tpuseg_torch.kernels import _build
-
-# launches since the last reset (chip_smoke.py reads and resets them): of
-# the (256, 64) kernel, and of the kernel of the other widths
-LAUNCHES = 0
-ANY_LAUNCHES = 0
+from tpuseg_torch.utils.profiling import count, span
 
 KERNEL_SHAPE = (256, 64)  # (C, M) bottleneck_fused.cu is laid out for
 ANY_MAX = (1024, 256)     # the largest (C, M) bottleneck_fused_any.cu takes
@@ -265,13 +261,13 @@ def _bottleneck_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    global LAUNCHES
     lib = _build.library()
-    err = lib.tpuseg_bottleneck(
-        x.data_ptr(), blob.data_ptr(), out.data_ptr(), b, h, w,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with span("kernel.bottleneck"):
+        err = lib.tpuseg_bottleneck(
+            x.data_ptr(), blob.data_ptr(), out.data_ptr(), b, h, w,
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "bottleneck_fused")
-    LAUNCHES += 1
+    count("kernel.bottleneck.launches")
     return out
 
 
@@ -288,13 +284,14 @@ def _launch_any(x, w1, b1, w2, b2, w3, b3, blob) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    global ANY_LAUNCHES
     lib = _build.library()
-    err = lib.tpuseg_bottleneck_any(
-        x.data_ptr(), blob.data_ptr(), blob.numel(), out.data_ptr(), b, h, w,
-        c, w1.shape[-1], torch.cuda.current_stream(x.device).cuda_stream)
+    with span("kernel.bottleneck"):
+        err = lib.tpuseg_bottleneck_any(
+            x.data_ptr(), blob.data_ptr(), blob.numel(), out.data_ptr(), b,
+            h, w, c, w1.shape[-1],
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "bottleneck_fused_any")
-    ANY_LAUNCHES += 1
+    count("kernel.bottleneck_any.launches")
     return out
 
 

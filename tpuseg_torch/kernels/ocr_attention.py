@@ -18,9 +18,7 @@ import torch.utils.flop_counter
 
 from tpuseg_torch.kernels import _build
 from tpuseg_torch.ops.precision import upcast
-
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
-LAUNCHES = 0
+from tpuseg_torch.utils.profiling import count, span
 
 MAX_KEYS = 128
 MAX_DIM = 1024
@@ -101,15 +99,15 @@ def _ocr_attention(q: torch.Tensor, key: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    global LAUNCHES
     lib = _build.library()
-    err = lib.tpuseg_ocr_attention(
-        q.data_ptr(), key.data_ptr(), val.data_ptr(), out.data_ptr(),
-        b, n, key.shape[1], d, float(d) ** -0.5,
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with span("kernel.ocr_attention"):
+        err = lib.tpuseg_ocr_attention(
+            q.data_ptr(), key.data_ptr(), val.data_ptr(), out.data_ptr(),
+            b, n, key.shape[1], d, float(d) ** -0.5,
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "ocr_attention")
-    LAUNCHES += 1
+    count("kernel.ocr_attention.launches")
     return out
 
 

@@ -16,6 +16,7 @@ from tpuseg_torch.models.layers import SegHead, conv
 from tpuseg_torch.models.ocrnet import to_nchw, to_nhwc
 from tpuseg_torch.models.trunks import get_trunk
 from tpuseg_torch.ops import scale_as, upcast
+from tpuseg_torch.utils.profiling import span, spanned
 
 
 class DeepV3Plus(nn.Module):
@@ -44,8 +45,10 @@ class DeepV3Plus(nn.Module):
     def features(self, x):
         """NCHW image -> (the trunk's s2 tap, ASPP features)."""
         s2, _, high = self.backbone(x)
-        return s2, self.aspp(high)
+        with span("model.head"):
+            return s2, self.aspp(high)
 
+    @spanned("model.head")
     def decode(self, x, s2, aspp):
         """-> (f32 logits at ``x``'s size, the decoder's concat ``cat_s4``
         the attention heads read)."""
@@ -83,8 +86,10 @@ class DeepV3(nn.Module):
     def forward(self, x):
         x = to_nchw(x)
         _, _, high = self.backbone(x)
-        y = self.final(self.aspp(high))
-        return {"pred": to_nhwc(scale_as(upcast(y), x, self.align_corners))}
+        with span("model.head"):
+            y = self.final(self.aspp(high))
+            return {"pred": to_nhwc(scale_as(upcast(y), x,
+                                             self.align_corners))}
 
 
 def _kw(cfg):

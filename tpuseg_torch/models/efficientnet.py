@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from tpuseg_torch.models.hrnet import remat_call
 from tpuseg_torch.models.layers import Conv2d, Norm, conv
 from tpuseg_torch.ops import global_avg_pool, upcast
+from tpuseg_torch.utils.profiling import spanned
 
 # B0 stage table: (expand, channels, repeats, stride, kernel)
 _B0_STAGES = (
@@ -172,6 +173,7 @@ class EfficientNetB4(nn.Module):
             stages.append(nn.Sequential(*blocks))
         self.blocks = nn.Sequential(*stages)
 
+    @spanned("model.trunk")
     def forward(self, x):
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         x = F.silu(self.bn1(self.conv_stem(x)))

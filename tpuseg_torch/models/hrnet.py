@@ -41,6 +41,7 @@ from tpuseg_torch.kernels.bottleneck_fused import (
 from tpuseg_torch.models.layers import Norm, conv
 from tpuseg_torch.ops import resize_bilinear
 from tpuseg_torch.parallel import spatial
+from tpuseg_torch.utils.profiling import span, spanned
 
 
 @dataclass(frozen=True)
@@ -325,9 +326,14 @@ def _frozen_bn_stats(module: nn.Module):
 def remat_call(module: nn.Module, *inputs):
     """``module(*inputs)`` with its activations recomputed in the backward
     pass (non-reentrant ``torch.utils.checkpoint``), BN running statistics
-    updated once."""
+    updated once. The block runs under the span ``remat.block``, in the
+    forward and again where the backward recomputes it."""
+    def block(*xs):
+        with span("remat.block"):
+            return module(*xs)
+
     return checkpoint(
-        module, *inputs, use_reentrant=False,
+        block, *inputs, use_reentrant=False,
         context_fn=lambda: (contextlib.nullcontext(),
                             _frozen_bn_stats(module)))
 
@@ -379,6 +385,7 @@ class HRNetV2(nn.Module):
                 for _ in range(mods))))
             prev = tuple(chans)
 
+    @spanned("model.trunk")
     def forward(self, x):
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         x = torch.relu(self.bn1(self.conv1(x)))

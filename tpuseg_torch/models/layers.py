@@ -46,6 +46,7 @@ import torch.nn.functional as F
 
 from tpuseg_torch.ops import upcast
 from tpuseg_torch.parallel import process_count, spatial
+from tpuseg_torch.utils.profiling import spanned
 
 
 class Conv2d(nn.Conv2d):
@@ -149,6 +150,7 @@ class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` that also trains on one value per channel, and
     over the global batch when more than one rank trains."""
 
+    @spanned("op.bn")
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training and process_count() > 1:
             return self._global_batch(x)

@@ -34,6 +34,7 @@ from tpuseg_torch.kernels.ocr_attention import (
 from tpuseg_torch.models.layers import ConvNormAct, bn_relu, conv
 from tpuseg_torch.ops import upcast
 from tpuseg_torch.parallel import spatial
+from tpuseg_torch.utils.profiling import spanned
 
 
 def _nhwc_flat(x: torch.Tensor) -> torch.Tensor:
@@ -142,6 +143,7 @@ class OCRBlock(nn.Module):
             bn_relu(high_level_ch),
             conv(high_level_ch, num_classes, 1, bias=True))
 
+    @spanned("model.ocr")
     def forward(self, high_level_features):
         feats = self.conv3x3_ocr(high_level_features)
         aux_out = self.aux_head(high_level_features)

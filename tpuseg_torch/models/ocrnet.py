@@ -17,6 +17,7 @@ from tpuseg_torch.models.layers import AttnHead
 from tpuseg_torch.models.mscale_core import nscale_fuse, two_scale_fuse
 from tpuseg_torch.models.ocr import OCRBlock
 from tpuseg_torch.ops import at_least_f32, scale_as, upcast
+from tpuseg_torch.utils.profiling import span
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -49,10 +50,13 @@ class OCRNet(nn.Module):
         _, _, high = self.backbone(x)
         cls_out, aux_out, _ = self.ocr(high)
         # cast BEFORE the resize: the f32 island includes the interpolation
-        return {
-            "pred": to_nhwc(scale_as(upcast(cls_out), x, self.align_corners)),
-            "aux": to_nhwc(scale_as(upcast(aux_out), x, self.align_corners)),
-        }
+        with span("model.head"):
+            return {
+                "pred": to_nhwc(scale_as(upcast(cls_out), x,
+                                         self.align_corners)),
+                "aux": to_nhwc(scale_as(upcast(aux_out), x,
+                                        self.align_corners)),
+            }
 
 
 class OCRNetASPP(nn.Module):
@@ -77,11 +81,16 @@ class OCRNetASPP(nn.Module):
     def forward(self, x):
         x = to_nchw(x)
         _, _, high = self.backbone(x)
-        cls_out, aux_out, _ = self.ocr(self.aspp(high))
-        return {
-            "pred": to_nhwc(scale_as(upcast(cls_out), x, self.align_corners)),
-            "aux": to_nhwc(scale_as(upcast(aux_out), x, self.align_corners)),
-        }
+        with span("model.head"):
+            aspp = self.aspp(high)
+        cls_out, aux_out, _ = self.ocr(aspp)
+        with span("model.head"):
+            return {
+                "pred": to_nhwc(scale_as(upcast(cls_out), x,
+                                         self.align_corners)),
+                "aux": to_nhwc(scale_as(upcast(aux_out), x,
+                                        self.align_corners)),
+            }
 
 
 class MscaleOCR(nn.Module):
@@ -123,15 +132,17 @@ class MscaleOCR(nn.Module):
         skips the aux upsample, which only training losses read."""
         _, _, high = self.backbone(x)
         cls_out, aux_out, ocr_mid = self.ocr(high)
-        attn = self.scale_attn(ocr_mid)
-        fdt = (self.fusion_dtype if not self.training
-               else at_least_f32(cls_out.dtype))
-        out = {
-            "cls_out": scale_as(cls_out.to(fdt), x, self.align_corners),
-            "logit_attn": scale_as(attn.to(fdt), x, self.align_corners),
-        }
-        if need_aux:
-            out["aux_out"] = scale_as(aux_out.to(fdt), x, self.align_corners)
+        with span("model.head"):
+            attn = self.scale_attn(ocr_mid)
+            fdt = (self.fusion_dtype if not self.training
+                   else at_least_f32(cls_out.dtype))
+            out = {
+                "cls_out": scale_as(cls_out.to(fdt), x, self.align_corners),
+                "logit_attn": scale_as(attn.to(fdt), x, self.align_corners),
+            }
+            if need_aux:
+                out["aux_out"] = scale_as(aux_out.to(fdt), x,
+                                          self.align_corners)
         return out
 
     def forward(self, x):

@@ -20,6 +20,7 @@ import torch.nn as nn
 from tpuseg_torch.models.hrnet import remat_call
 from tpuseg_torch.models.layers import Norm, conv
 from tpuseg_torch.ops import MaxPool2d
+from tpuseg_torch.utils.profiling import spanned
 
 
 class ResNetBottleneck(nn.Module):
@@ -64,6 +65,7 @@ class LayeredTrunk(nn.Module):
     ``(layer1, None, layer4)``. ``remat`` recomputes each block in the
     backward pass."""
 
+    @spanned("model.trunk")
     def forward(self, x):
         x = self.layer0(
             x.to(self.dtype).contiguous(memory_format=torch.channels_last))

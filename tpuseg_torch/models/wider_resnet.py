@@ -25,6 +25,7 @@ import torch.nn as nn
 from tpuseg_torch.models.hrnet import remat_call
 from tpuseg_torch.models.layers import bn_relu, conv
 from tpuseg_torch.ops import max_pool2d
+from tpuseg_torch.utils.profiling import spanned
 
 
 class IdentityResidualBlock(nn.Module):
@@ -93,6 +94,7 @@ class WRN38(nn.Module):
                 blocks)))
         self.n_mods = len(structure)
 
+    @spanned("model.trunk")
     def forward(self, x):
         x = self.mod1(
             x.to(self.dtype).contiguous(memory_format=torch.channels_last))

@@ -25,6 +25,7 @@ import torch.nn as nn
 
 from tpuseg_torch.models.hrnet import remat_call
 from tpuseg_torch.models.layers import Conv2d, Norm, conv
+from tpuseg_torch.utils.profiling import spanned
 
 
 class SeparableConv(nn.Module):
@@ -127,6 +128,7 @@ class Xception71(nn.Module):
             setattr(self, f"conv{i}", SeparableConv(ci, co, 1, exit_dils[1]))
             setattr(self, f"bn{i}", Norm(co))
 
+    @spanned("model.trunk")
     def forward(self, x):
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         remat = self.remat and self.training and torch.is_grad_enabled()

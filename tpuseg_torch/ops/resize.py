@@ -52,8 +52,10 @@ import torch.nn.functional as F
 
 from tpuseg_torch.ops.precision import upcast
 from tpuseg_torch.parallel import spatial
+from tpuseg_torch.utils.profiling import spanned
 
 
+@spanned("op.resize")
 def resize_bilinear(x: torch.Tensor, size, align_corners: bool = False
                     ) -> torch.Tensor:
     """Bilinear resize of NCHW ``x`` to ``size=(H, W)`` (the image's size

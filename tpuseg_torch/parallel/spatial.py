@@ -68,6 +68,7 @@ import torch
 import torch.distributed as dist
 
 from tpuseg_torch.ops.precision import at_least_f32
+from tpuseg_torch.utils.profiling import count
 
 
 @dataclass(frozen=True)
@@ -86,24 +87,19 @@ _replicated: Optional[Bands] = None
 _true: dict = {}
 _padded: dict = {}
 
-# collectives issued on the sp groups by kind ("halo" exchanges, "sum",
-# "max"), and their host seconds (gloo on CUDA copies through the host, so
-# these include the device sync); the train loop logs them per step
-COUNTS = {"halo": 0, "sum": 0, "max": 0}
-SECONDS = {"halo": 0.0, "sum": 0.0, "max": 0.0}
-
-
-def reset_counts() -> None:
-    for k in COUNTS:
-        COUNTS[k], SECONDS[k] = 0, 0.0
+# the kinds of collective issued on the sp groups ("halo" exchanges,
+# "sum", "max"): each counts in the counter ``sp.<kind>`` and its host
+# seconds in ``sp.<kind>.host_s`` (gloo on CUDA copies through the host,
+# so these include the device sync); the train loop logs them per step
+KINDS = ("halo", "sum", "max")
 
 
 def _all_reduce(t: torch.Tensor, group, kind: str,
                 op=dist.ReduceOp.SUM) -> None:
     t0 = time.perf_counter()
     dist.all_reduce(t, op=op, group=group)
-    SECONDS[kind] += time.perf_counter() - t0
-    COUNTS[kind] += 1
+    count(f"sp.{kind}.host_s", time.perf_counter() - t0)
+    count(f"sp.{kind}")
 
 
 @contextlib.contextmanager
@@ -466,8 +462,8 @@ def resize_rows(x: torch.Tensor, h_out: int, align_corners: bool
             + lam.view(1, 1, -1, 1) * ext.index_select(2, i1 - lo))
 
 
-__all__ = ["Bands", "COUNTS", "SECONDS", "active", "band", "band_max",
+__all__ = ["Bands", "KINDS", "active", "band", "band_max",
            "band_sum", "conv_rows", "gather_rows", "global_height",
            "global_size", "memory_format", "replicas", "replicated",
-           "reset_counts", "resize_rows", "sharded", "split_rows",
+           "resize_rows", "sharded", "split_rows",
            "valid_rows", "window_needs", "window_rows", "zero_padding"]

@@ -82,7 +82,9 @@ from tpuseg_torch.train.checkpoint import (
 )
 from tpuseg_torch.train.optim import make_optimizer
 from tpuseg_torch.train.step import make_train_step
+from tpuseg_torch.utils import profiling
 from tpuseg_torch.utils.logging import Logger
+from tpuseg_torch.utils.profiling import spanned
 
 
 def resolve_device(device: str) -> torch.device:
@@ -274,6 +276,7 @@ class Trainer:
             self.train_set.label_transform = relaxed_label_transform(
                 cfg, self.ignore_label, reduce_border=True)
 
+    @spanned("train.upload")
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
         if self.device.type == "cuda":
@@ -311,13 +314,13 @@ class Trainer:
 
         profile_on = (cfg.train.profile_steps > 0 and self.is_primary
                       and epoch == self.start_epoch)
-        trace_dir = os.path.join(self.logdir, "trace")
         prof = None
         loss_sum = None
         n_done = 0
         data_s = first_wait = 0.0
         t_start = t_wait = time.perf_counter()
         t_first = None
+        sp_first = {}
         for i, batch in enumerate(self.train_loader):
             if cfg.train.test_mode and i >= 10:
                 break
@@ -325,7 +328,7 @@ class Trainer:
             if i == 0:  # the loader's start
                 first_wait = data_s
             if i == 1:
-                spatial.reset_counts()
+                sp_first = profiling.counters()
             # on bands through the backward too (remat recomputes there)
             with spatial.sharded(self.mesh.bands):
                 band = shard_batch_spatial(self.mesh, batch,
@@ -340,10 +343,10 @@ class Trainer:
             n_done += 1
             if profile_on and i == 0:
                 float(metrics["loss"])  # the first step ends untraced
-                prof = self._start_profile()
+                prof = profiling.start_trace(self.device.type == "cuda")
             elif prof is not None and i >= cfg.train.profile_steps:
                 float(metrics["loss"])  # the traced steps end inside
-                self._stop_profile(prof, trace_dir)
+                self._stop_profile(prof)
                 prof = None
             if (i + 1) % cfg.train.log_every == 0 or i == 0:
                 # the device sync point; the global batch's loss
@@ -364,20 +367,23 @@ class Trainer:
                     t_first = time.perf_counter()
             t_wait = time.perf_counter()
         if prof is not None:  # the epoch was shorter than profile_steps
-            self._stop_profile(prof, trace_dir)
+            self._stop_profile(prof)
         # syncs; the global batch's loss
         mean_loss = (_rank_mean(float(loss_sum)) / n_done if n_done
                      else 0.0)
         self._log_epoch(epoch, n_done, data_s, first_wait, t_first,
-                        batch["image"].shape[0] if n_done else 0, mean_loss)
+                        batch["image"].shape[0] if n_done else 0, mean_loss,
+                        sp_first)
         return mean_loss
 
     def _log_epoch(self, epoch, n_done, data_s, first_wait, t_first,
-                   batch_size, mean_loss) -> None:
+                   batch_size, mean_loss, sp_first) -> None:
         """The epoch's global rate over steps 2..N (the first pays cuDNN's
         algorithm choice and the loader's start) and the host time spent
         waiting for batches, over all steps and over steps 2..N, on each
-        rank."""
+        rank; the sp collectives of steps 2..N (the counters since
+        ``sp_first``, read before step 2), and the process's kernel builds
+        and eval shapes so far."""
         rate = steady = ""
         if n_done > 1 and t_first is not None:
             dt = time.perf_counter() - t_first
@@ -391,13 +397,19 @@ class Trainer:
         self.logger.msg(f"epoch {epoch}: {n_done} steps on {self.device}, "
                         f"{rate}host data wait {wait:.1f} ms/step{steady}, "
                         f"mean loss {mean_loss:.4f}")
+        now = profiling.counters()
         if self.mesh.bands is not None and n_done > 1:
             steps = n_done - 1
+
+            def per_step(key):
+                return (now.get(key, 0) - sp_first.get(key, 0)) / steps
+
             self.logger.msg(
                 f"epoch {epoch}: sp collectives a step (steps 2-{n_done}): "
-                + ", ".join(f"{spatial.COUNTS[k] / steps:g} {k} "
-                            f"{spatial.SECONDS[k] / steps:.4f} s"
-                            for k in spatial.COUNTS) + " of host time")
+                + ", ".join(f"{per_step(f'sp.{k}'):g} {k} "
+                            f"{per_step(f'sp.{k}.host_s'):.4f} s"
+                            for k in spatial.KINDS) + " of host time")
+        self.logger.msg(_builds_and_shapes(now))
         if process_count() > 1:
             waits = " ".join(f"{w:.1f}" for w in per_rank(wait))
             laters = " ".join(f"{w:.1f}" for w in per_rank(later))
@@ -405,26 +417,13 @@ class Trainer:
                             f"data wait by rank {waits} ms/step (steps 2-N "
                             f"{laters})")
 
-    def _start_profile(self):
-        """torch.profiler over ``train.profile_steps`` steady-state steps
+    def _stop_profile(self, prof) -> None:
+        """Write the trace of ``train.profile_steps`` steady-state steps
         (the first step, which pays cuDNN's algorithm choice, is left
-        out)."""
-        from torch.profiler import ProfilerActivity, profile
-
-        acts = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            acts.append(ProfilerActivity.CUDA)
-        prof = profile(activities=acts)
-        prof.start()
-        return prof
-
-    def _stop_profile(self, prof, trace_dir: str) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        prof.stop()
-        os.makedirs(trace_dir, exist_ok=True)
-        path = os.path.join(trace_dir, f"train_step{self.step}.json")
-        prof.export_chrome_trace(path)
+        out) to ``<logdir>/trace/train_step<N>.json``."""
+        path = os.path.join(self.logdir, "trace",
+                            f"train_step{self.step}.json")
+        profiling.stop_trace(prof, path, self.device.type == "cuda")
         self.logger.msg(f"device trace -> {path}")
 
     def validate(self, epoch: int):
@@ -560,6 +559,15 @@ def _dump(dumper: ImageDumper, batch, assets, val_idx: int) -> None:
                  "assets": assets}, val_idx)
 
 
+def _builds_and_shapes(counts: dict) -> str:
+    """The counters that say whether set-up work came back: ``nvcc``
+    builds of the kernels and eval batch shapes first seen (each a new
+    algorithm choice of cuDNN's), in this process so far."""
+    return (f"kernel builds in this process: {counts.get('kernel.builds', 0)}"
+            f" ({counts.get('kernel.build_s', 0.0):.1f} s); eval batch "
+            f"shapes first seen: {counts.get('eval.new_shapes', 0)}")
+
+
 def evaluate_only(cfg: Config, logdir: str = "logs",
                   eval_mode: str = "val", checkpoint: Optional[str] = None,
                   device: str = "cuda", is_primary: bool = True):
@@ -667,6 +675,7 @@ def evaluate_only(cfg: Config, logdir: str = "logs",
                    f"{(pixels - px_first) / dt / 1e6:.4f} Mpx/s")
     logger.msg(f"dumped {dumped} batches to {dumper.dump_dir}: {dump_s:.3f} "
                f"s on the host writing images")
+    logger.msg(_builds_and_shapes(profiling.counters()))
     dumper.write_summaries(logger, 0)
     dumper.write_webpage()
     if not calc_metrics:

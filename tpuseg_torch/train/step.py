@@ -16,6 +16,7 @@ from tpuseg_torch.ops import device_label, device_normalize, resize_bilinear
 from tpuseg_torch.ops.normalize import IMAGENET_MEAN, IMAGENET_STD
 from tpuseg_torch.parallel import spatial
 from tpuseg_torch.train.optim import set_lr
+from tpuseg_torch.utils.profiling import span
 
 
 def _scale_as_nhwc(x: torch.Tensor, y: torch.Tensor, align_corners: bool
@@ -66,11 +67,15 @@ def make_train_step(criterion: Callable, schedule: Callable[[int], float],
                            supervised_mscale_wt, align_corners, mean, std)
 
     def train_step(model, optimizer, batch, step: int):
-        set_lr(optimizer, schedule(step))
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model, batch)
-        loss.backward()
-        optimizer.step()
+        with span("train.optimizer"):
+            set_lr(optimizer, schedule(step))
+            optimizer.zero_grad(set_to_none=True)
+        with span("train.forward"):
+            loss = loss_fn(model, batch)
+        with span("train.backward"):
+            loss.backward()
+        with span("train.optimizer"):
+            optimizer.step()
         return {"loss": loss.detach()}
 
     return train_step
