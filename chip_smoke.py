@@ -8,11 +8,16 @@ CLI's code, compares kernels on vs off, and profiles one image. The
 bottleneck's second kernel, for every width but W48's (256, 64), is held
 at four widths and ragged cases, timed beside the first and the cuDNN
 block, and driven by ``MscaleOCR`` with a 32-wide stage 1 at three scales
-([s1w32-eval]). Then the eval surfaces over a seeded 1024x2048
-Cityscapes tree: ``dump`` in four modes ([dump]), ``export`` of the W48
-3-scale program with both kernels as registered ops, served in process
-and over HTTP ([serve]), and
-``summary`` ([summary]). Then the training slice: one tiny f32 train step
+([s1w32-eval]). ASPP's dilated conv kernel is held and timed at the
+DeepLabV3+ train cell's rate-12 conv beside its bound, its plain version
+and cuDNN's NCHW conv (its other rates and shapes are held in
+tests/test_torch_kernels_cuda.py); [zoo-eval] times it beside cuDNN on
+HRNet_ASPP_OCR's rate-12 conv, and every phase that holds launch counts
+holds its launches, 3 an ASPP forward. Then the eval surfaces over a
+seeded 1024x2048 Cityscapes tree: ``dump`` in four modes ([dump]),
+``export`` of the W48 3-scale program with both kernels as registered
+ops, served in process and over HTTP ([serve]), and ``summary``
+([summary]). Then the training slice: one tiny f32 train step
 on the card vs the CPU and remat on vs off ([train-parity]), the W48
 ``train_cityscapes.yaml`` run through the CLI's code for two short epochs
 over the same tree with both kernels in its validations ([train]), remat
@@ -541,12 +546,104 @@ def _time_bottleneck_any(bk, gen, card_info):
     return rows
 
 
+# the dilated conv's row: the DeepLabV3+ train cell's rate-12 ASPP conv,
+# 4096 -> 256 at 8 x 100 x 100 (rates 24 and 36 and the other shapes are
+# held in tests/test_torch_kernels_cuda.py); held on DILATED_HELD images
+# against its plain version in f32 by L1-relative and max|d|, a few bf16
+# ulps of |out| < 8, which one wrong 128-pixel tile exceeds
+DILATED_SHAPE = (8, 4096, 100, 100, 256)
+DILATED_RATE = 12
+DILATED_HELD = 2
+DILATED_L1_TOL = 5e-3
+DILATED_MAX_TOL = 0.1
+
+
+def _dilated_case(b, cin, h, w, cout):
+    """Seeded on the card (the 655 MB input takes seconds on the host)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(b, h, w, cin, generator=gen, device="cuda",
+                    dtype=torch.bfloat16).permute(0, 3, 1, 2)
+    wt = torch.randn(cout, cin, 3, 3, generator=gen, device="cuda") / (
+        9 * cin) ** 0.5
+    return x, wt.to(torch.bfloat16)
+
+
+def held_dilated(tag: str, got, want) -> dict:
+    """Kernel vs plain version (f32 from the same bf16 inputs), logged;
+    raises past the bounds. Returns the errors."""
+    torch.cuda.synchronize()
+    max_abs, l1 = compare(got, want)
+    log(f"[kernel] dilated_conv {tag} out={tuple(got.shape)} bf16: "
+        f"max|d|={max_abs:.3e} l1_rel={l1:.3e} (bounds l1_rel < "
+        f"{DILATED_L1_TOL}, max|d| < {DILATED_MAX_TOL}; max|out| "
+        f"{float(want.abs().max()):.3f})")
+    if not (l1 < DILATED_L1_TOL and max_abs < DILATED_MAX_TOL):
+        raise AssertionError(f"dilated_conv {tag}: l1 {l1}, max|d| "
+                             f"{max_abs}")
+    return {"max_abs_err": max_abs, "l1_rel": l1}
+
+
+def _time_dilated_conv(dc, gen, card_info):
+    """The train cell's rate-12 conv: the kernel held against its plain
+    version on the first DILATED_HELD images and timed on all of them; the
+    plain version (the NCHW copy and cuDNN's conv, the model's route
+    before the kernel) and cuDNN's ``F.conv2d`` on NCHW input alone (a
+    yardstick only), ~55 ms a call each. The bound is the benchmark's
+    (``portbench/metrics/dilated_conv_roofline.py``): the taps in the
+    image. The input (655 MB) is past the L2 on its own."""
+    import torch.nn.functional as F
+
+    from portbench.metrics.dilated_conv_roofline import launch_s
+
+    t0 = time.perf_counter()
+    d, n = DILATED_RATE, DILATED_HELD
+    x, wt = _dilated_case(*DILATED_SHAPE)
+    wp = dc.pack_weight(wt)
+    xn, wn = x.contiguous(), wt.contiguous()
+    copies = [(x,)]
+    got = dc.dilated_conv3x3(x, wt, (d, d), d)
+    err = held_dilated(
+        f"rate {d} x={tuple(x.shape)} (images 1-{n})", got[:n],
+        dc.dilated_conv3x3_reference(x[:n].float(), wp.float(), d, d, d))
+    del got
+
+    def run(x):
+        return torch.ops.tpuseg_torch.dilated_conv3x3(x, wp, d, d, d)
+
+    def plain(x):
+        return dc.dilated_conv3x3_reference(x, wp, d, d, d)
+
+    def cudnn(x):
+        return F.conv2d(xn, wn, None, 1, d, d)
+
+    ms = time_ms(run, copies)
+    dev, host = profiled_ms(run, copies)
+    with torch.inference_mode():
+        plain_ms = time_ms(plain, copies, inner=1)
+        lib = time_ms(cudnn, copies, inner=1)
+    b, cin, h, w, cout = DILATED_SHAPE
+    bnd = launch_s(b, h, w, cin, cout, d) * 1e3
+    del x, wt, wp, xn, wn, copies
+    torch.cuda.empty_cache()
+    row_s = time.perf_counter() - t0
+    log(f"[kernel] dilated_conv rate {d} x={DILATED_SHAPE[:4]} -> {cout} "
+        f"bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN NCHW "
+        f"{lib:.4f} ms, bound {bnd:.4f} ms (in-image taps), {bnd / ms:.1%} "
+        f"of the bound (median of {REPS} x 10 calls); profiled: kernel "
+        f"{dev:.4f} ms ({bnd / dev:.1%} of the bound), host {host:.4f} ms "
+        f"a call; the row took {row_s:.1f} s; {card_info}")
+    return {d: {"ms": ms, "kernel_ms": dev, "host_ms": host,
+                "plain_ms": plain_ms, "library_ms": lib, "bound_ms": bnd,
+                "row_s": row_s, **err}}
+
+
 def phase_kernels(card_info: str) -> list:
     """Each kernel vs its plain version on the card, then timed at the main
     path's shapes at the three scales (the kernel of the other widths at
     the shapes of BNECK_ANY_TIMED). Returns the JSON records (launches
     filled in by the main path's run)."""
     from tpuseg_torch.kernels import bottleneck_fused as bk
+    from tpuseg_torch.kernels import dilated_conv as dc
     from tpuseg_torch.kernels import ocr_attention as ak
 
     gen = torch.Generator().manual_seed(0)
@@ -558,7 +655,12 @@ def phase_kernels(card_info: str) -> list:
              "tpuseg/kernels/bottleneck_fused.py:118", 1.0, "scales"),
             ("bottleneck_fused_any", bk, _check_bottleneck_any,
              _time_bottleneck_any, "tpuseg/kernels/bottleneck_fused.py:118",
-             BNECK_ANY_MAIN, "widths")):
+             BNECK_ANY_MAIN, "widths"),
+            # its other rates and shapes (ragged, batch 1, a band) are held
+            # in tests/test_torch_kernels_cuda.py
+            ("dilated_conv", dc, lambda dc, gen: 0.0, _time_dilated_conv,
+             "none (XLA compiles tpuseg's dilated convs)", DILATED_RATE,
+             "rates")):
         rows = timed(mod, gen, card_info)
         max_abs = max(check(mod, gen),
                       *(r["max_abs_err"] for r in rows.values()))
@@ -568,7 +670,7 @@ def phase_kernels(card_info: str) -> list:
             "source": f"tpuseg_torch/csrc/{name}.cu", "replaces": replaces,
             "launches": 0, "max_abs_err": max_abs, "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"],
+            "bound_by": main.get("bound_by"),
             "library_ms": main.get("library_ms"),
             **({"unfused_ms": main["unfused_ms"]} if "unfused_ms" in main
                else {}),
@@ -613,13 +715,15 @@ def _run_cli(argv: list):
 
 
 # every kernel's launch counter, by the name of its record
-KERNELS = ("ocr_attention", "bottleneck_fused", "bottleneck_fused_any")
+KERNELS = ("ocr_attention", "bottleneck_fused", "bottleneck_fused_any",
+           "dilated_conv")
 
 
 # the program's launch counter of each (``tpuseg_torch.utils.profiling``)
 LAUNCH_COUNTERS = ("kernel.ocr_attention.launches",
                    "kernel.bottleneck.launches",
-                   "kernel.bottleneck_any.launches")
+                   "kernel.bottleneck_any.launches",
+                   "kernel.dilated_conv.launches")
 
 
 def reset_launches() -> None:
@@ -651,13 +755,15 @@ def sp_collectives() -> dict:
 
 
 def _hold_launches(tag: str, launches: dict, forwards: int,
-                   per: tuple = (3, 9, 0)) -> None:
+                   per: tuple = (3, 9, 0, 0)) -> None:
     """Held: ``per`` = (attention, (256, 64) bottleneck, other-width
-    bottleneck) launches a forward (an image), ``forwards`` of them."""
+    bottleneck, dilated conv) launches a forward (an image), ``forwards``
+    of them."""
     want = {k: n * forwards for k, n in zip(KERNELS, per)}
     log(f"[{tag}] launches {launches} (want {want}: {per[0]} attention, "
-        f"{per[1]} (256, 64) bottleneck and {per[2]} other-width "
-        f"bottleneck calls an image, {forwards} images)")
+        f"{per[1]} (256, 64) bottleneck, {per[2]} other-width "
+        f"bottleneck and {per[3]} dilated conv calls an image, {forwards} "
+        f"images)")
     if launches != want:
         raise AssertionError(f"[{tag}] launch counts {launches} != {want}")
 
@@ -865,7 +971,7 @@ def phase_s1w32_eval(card_info: str) -> dict:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
     launches = launch_counts()
-    _hold_launches("s1w32-eval", launches, len(images), per=(3, 0, 9))
+    _hold_launches("s1w32-eval", launches, len(images), per=(3, 0, 9, 0))
     log(f"[s1w32-eval] MscaleOCR, HRNetSpec(stage1_channels=32), bf16, "
         f"n-scale {model.n_scales}, {len(images)} 1024x2048 images: "
         f"{np.median(times[1:]) * 1e3:.1f} ms an image (median of images "
@@ -1803,7 +1909,7 @@ def phase_train(card_info: str, root: str) -> dict:
     # the validations launched both kernels on every image
     want = {"ocr_attention": 3 * 2 * TRAIN_VAL_IMAGES,
             "bottleneck_fused": 9 * 2 * TRAIN_VAL_IMAGES,
-            "bottleneck_fused_any": 0}
+            "bottleneck_fused_any": 0, "dilated_conv": 0}
     log(f"[train] validation launches {launches} (want {want}: 3 attention "
         f"and 9 bottleneck calls an image, 2 validations)")
     if launches != want:
@@ -1964,8 +2070,12 @@ ZOO_CONVS = (("HRNet_ASPP_OCR ASPP rate 12, 1.0x", 720, 256, 12, (256, 512)),
 def _conv_algorithms(card_info: str) -> None:
     """Each of ZOO_CONVS timed with CUDA events (median of 2 calls after a
     warm-up) under cuDNN's default algorithm choice and under
-    ``cudnn.benchmark``, on channels_last and on contiguous NCHW input."""
+    ``cudnn.benchmark``, on channels_last and on contiguous NCHW input,
+    and by the dilated conv kernel where it takes the conv (median of REPS
+    calls after a warm-up)."""
     import torch.nn.functional as F
+
+    from tpuseg_torch.kernels import dilated_conv as dc
 
     flag = torch.backends.cudnn.benchmark
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1995,6 +2105,13 @@ def _conv_algorithms(card_info: str) -> None:
                     row.append(f"{'benchmark' if bench else 'default'} "
                                f"{'NHWC' if fmt is torch.channels_last else 'NCHW'}"
                                f" {np.median(times):.3f} ms")
+            if dc.supports(x, wt, dilation=(d, d)):
+                # the port's route for it since the dilated conv kernel
+                xc = x.contiguous(memory_format=torch.channels_last)
+                with torch.inference_mode():
+                    ms = time_ms(lambda x: dc.dilated_conv3x3(
+                        x, wt, (d, d), d), [(xc,)], inner=1)
+                row.append(f"the dilated conv kernel {ms:.3f} ms")
             flops = 2.0 * h * w * cout * cin * 9
             log(f"[zoo-eval] conv {what}: {cin}->{cout} 3x3 at {h}x{w} "
                 f"bf16 ({flops / BF16_FLOPS * 1e3:.3f} ms at the bf16 "
@@ -2059,9 +2176,10 @@ def phase_aspp_ocr(card_info: str, root: str) -> dict:
     """HRNet_ASPP_OCR at full width (W48 -> ASPP -> OCR, bf16) through
     EvalRunner at the outer scales {1.0, 0.5, 2.0} over the seeded val
     images with both kernels on, its BN statistics calibrated on one val
-    scene. Held: 3 attention and 9 bottleneck launches an image, each
-    kernel vs its plain version at the model's own inputs, kernels on vs
-    off (logit std and argmax agreement, as [on/off]). Printed: img/s.
+    scene. Held: 3 attention, 9 bottleneck and 9 dilated conv launches an
+    image, each kernel vs its plain version at the model's own inputs,
+    kernels on vs off (logit std and argmax agreement, as [on/off]).
+    Printed: img/s.
     Returns the launches of the val images' run."""
     from tpuseg_torch.config import make_config
     from tpuseg_torch.data.setup import setup_data
@@ -2100,7 +2218,8 @@ def phase_aspp_ocr(card_info: str, root: str) -> dict:
     hist = runner.drain(acc)[0]
     img_s = (len(batches) - 1) / (time.perf_counter() - t0)
     launches = launch_counts()
-    _hold_launches("aspp-ocr", launches, len(batches))
+    # ASPP's 3 rates at each of the 3 scales an image
+    _hold_launches("aspp-ocr", launches, len(batches), per=(3, 9, 0, 9))
     log(f"[aspp-ocr] HRNet_ASPP_OCR (W48 + ASPP + OCR) bf16, outer scales "
         f"(1.0, 0.5, 2.0), {len(batches)} 1024x2048 val images: "
         f"{img_s:.4f} img/s (images 2-{len(batches)}), {int(hist.sum())} "
@@ -2208,15 +2327,18 @@ def _log_rates(tag: str, text: str, what: str) -> None:
             f"s/image ({what})")
 
 
-def phase_deepv3_train(card_info: str, root: str) -> None:
+def phase_deepv3_train(card_info: str, root: str) -> dict:
     """``train_cityscapes_deepv3.yaml`` (DeepV3PlusW38 at full width, 800x800
     crops, bf16, plain CE, SGD + poly 2, the WRN38 blocks remat'd, the
     uint8 wire) through the CLI's code, bs 1, two epochs of TRAIN_STEPS
     steps over as many seeded Cityscapes train scenes, each validated over
     TRAIN_VAL_IMAGES images at 1024x2048.
     Held: finite losses, parameters and BN statistics moved, the checkpoint
-    written, equal to the trained module and resumed by a second run, and
-    each validation's confusion matrix counting every labelled pixel."""
+    written, equal to the trained module and resumed by a second run, each
+    validation's confusion matrix counting every labelled pixel, and the
+    first run's launches: the dilated conv's 3 a forward (ASPP's rates, a
+    train step or a val image), no other kernel's. Returns those
+    launches."""
     from tpuseg_torch.cli.main import load_config
     from tpuseg_torch.config import eval_model_config
     from tpuseg_torch.data.setup import setup_data
@@ -2234,11 +2356,13 @@ def phase_deepv3_train(card_info: str, root: str) -> None:
     undo, undo_drain = _spy_validation(recorded), _spy_drains(sums)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    reset_launches()
     try:
         text, wall = _run_train_cli(logdir, sets)
     finally:
         undo()
         undo_drain()
+    launches = launch_counts()
     mem = torch.cuda.max_memory_allocated() / 2 ** 30
     for name in ("log.txt", "metrics.jsonl"):
         shutil.copy(Path(logdir, name), out_dir / name)
@@ -2261,6 +2385,13 @@ def phase_deepv3_train(card_info: str, root: str) -> None:
         f"(want {labelled} labelled pixels each)")
     if sums != [labelled, labelled]:
         raise AssertionError(f"confusion matrices count {sums}")
+    forwards = steps + len(recorded)
+    want = {**dict.fromkeys(KERNELS, 0), "dilated_conv": 3 * forwards}
+    log(f"[deepv3-train] launches {launches} (want {want}: 3 dilated conv "
+        f"calls a forward, {steps} steps and {len(recorded)} val images)")
+    if launches != want or len(recorded) != 2 * TRAIN_VAL_IMAGES:
+        raise AssertionError(f"[deepv3-train] launch counts {launches} for "
+                             f"{len(recorded)} val images")
 
     model = recorded[-1][0].model
     trained = {k: v.detach().cpu() for k, v in model.state_dict().items()}
@@ -2290,6 +2421,7 @@ def phase_deepv3_train(card_info: str, root: str) -> None:
         raise AssertionError(f"checkpoint step {step}, equal {same}, "
                              f"resumed {resumed}")
     torch.cuda.empty_cache()
+    return launches
 
 
 def _subset_tree(root: str, n_train: int, n_val: int = VAL_IMAGES) -> str:
@@ -2498,7 +2630,7 @@ def phase_mscale_eval(card_info: str, root: str) -> dict:
     img_s = (len(batches) - 1) / (time.perf_counter() - t0)
     mem = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = launch_counts()
-    _hold_launches("mscale-eval", launches, len(batches), per=(0, 9, 0))
+    _hold_launches("mscale-eval", launches, len(batches), per=(0, 9, 0, 0))
     log(f"[mscale-eval] mscale.HRNet (W48 MscaleBasic) bf16, n-scale "
         f"{cfg.model.n_scales} in the model, {len(batches)} 1024x2048 val "
         f"images: {img_s:.4f} img/s (images 2-{len(batches)}), peak device "
@@ -2664,7 +2796,7 @@ def phase_mapillary_eval(card_info: str, mroot: str) -> dict:
     mem = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = launch_counts()
     n = len(MAPILLARY_VAL_HW)
-    _hold_launches("mapillary-eval", launches, n, per=(8, 24, 0))
+    _hold_launches("mapillary-eval", launches, n, per=(8, 24, 0, 0))
     img_s, mpx_s = _rate(tee.buf.getvalue())
     shapes = sorted({tuple(np.asarray(b["image"]).shape[1:3])
                      for b in loader})
@@ -3339,7 +3471,7 @@ def phase_ddp_train(card_info: str, root: str) -> dict:
         for r in ranks:
             want = {"ocr_attention": 3 * r["images"],
                     "bottleneck_fused": 9 * r["images"],
-                    "bottleneck_fused_any": 0}
+                    "bottleneck_fused_any": 0, "dilated_conv": 0}
             if r["images"] != images or r["launches"] != want:
                 bad.append(f"{name} rank {r['rank']} launches "
                            f"{r['launches']} for {r['images']} images")
@@ -3680,7 +3812,7 @@ def phase_sp_train(card_info: str, root: str) -> dict:
     for r in ranks:
         want = {"ocr_attention": 3 * r["images"],
                 "bottleneck_fused": 9 * r["images"],
-                "bottleneck_fused_any": 0}
+                "bottleneck_fused_any": 0, "dilated_conv": 0}
         if r["images"] != SP_VAL_IMAGES // 2 or r["launches"] != want:
             bad.append(f"rank {r['rank']} launches {r['launches']} for "
                        f"{r['images']} images")
@@ -3963,11 +4095,12 @@ def _sp_deepv3_ranks(card_info: str, root: str, sp: int, n_val: int,
     epoch over SP_DEEPV3_TRAIN train scenes, then one whole-image
     validation of ``n_val`` val scenes, one a rank. Held: every
     rank ends, the checkpoint written, the same mIoU on every rank, every
-    labelled val pixel counted once, no kernel launched (DeepLabV3+ has no
-    OCR block and no HRNet stage 1). Printed: s/step and img/s over steps
-    2..N, the sp collectives a step with their host seconds, the ranks'
-    all-reduces, peak memory a rank and validation s/image. Returns the
-    launches over the ranks."""
+    labelled val pixel counted once, the dilated conv's 3 launches a
+    forward (ASPP's rates, on the band in a step) and no other kernel's
+    (DeepLabV3+ has no OCR block and no HRNet stage 1). Printed: s/step
+    and img/s over steps 2..N, the sp collectives a step with their host
+    seconds, the ranks' all-reduces, peak memory a rank and validation
+    s/image. Returns the launches over the ranks."""
     from tpuseg_torch.cli.main import load_config
     from tpuseg_torch.data.setup import setup_data
 
@@ -4023,9 +4156,11 @@ def _sp_deepv3_ranks(card_info: str, root: str, sp: int, n_val: int,
         bad.append(f"val images by rank {images}")
     total = dict.fromkeys(KERNELS, 0)
     for r in ranks:
-        if any(r["launches"].values()):
+        want = {**dict.fromkeys(KERNELS, 0),
+                "dilated_conv": 3 * (steps + r["images"])}
+        if r["launches"] != want:
             bad.append(f"rank {r['rank']} launches {r['launches']} for "
-                       f"{r['images']} images")
+                       f"{steps} steps and {r['images']} images")
         for k in total:
             total[k] += r["launches"][k]
     if ckpts != [f"ckpt_{steps}.pt"]:
@@ -4341,7 +4476,7 @@ def run() -> int:
         timed(phase_sp_uneven_parity, card_info, sp_uneven)
         timed(phase_zoo_eval, card_info)
         aspp_ocr_launches = timed(phase_aspp_ocr, card_info, root)
-        timed(phase_deepv3_train, card_info, root)
+        deepv3_launches = timed(phase_deepv3_train, card_info, root)
         timed(phase_relaxed, card_info, root)
         mscale_launches = timed(phase_mscale_eval, card_info, root)
         timed(phase_mscale_train, card_info, root)
@@ -4359,19 +4494,20 @@ def run() -> int:
             f"{time.perf_counter() - t0:.1f} s")
         mapillary_launches = timed(phase_mapillary_eval, card_info, mroot)
         timed(phase_mapillary_train, card_info, mroot)
+    # each kernel's launches on its own slice's path: W48's eval recipe
+    # for the two kernels it runs, [s1w32-eval] for the other widths,
+    # DeepLabV3+'s train recipe for the dilated conv
+    paths = {"bottleneck_fused_any": ("s1w32-eval", s1w32_launches),
+             "dilated_conv": ("deepv3-train", deepv3_launches)}
     for r in records:
-        # each kernel's launches on its own slice's path: W48's eval recipe
-        # for the two kernels it runs, [s1w32-eval] for the other widths
-        path = ("s1w32-eval" if r["name"] == "bottleneck_fused_any"
-                else "main")
-        r["path"] = path
-        r["launches"] = (s1w32_launches if path == "s1w32-eval"
-                         else launches)[r["name"]]
+        r["path"], path_launches = paths.get(r["name"], ("main", launches))
+        r["launches"] = path_launches[r["name"]]
         r["main_launches"] = launches[r["name"]]
         r["dump_launches"] = dump_launches[r["name"]]
         r["serve_launches"] = serve_launches[r["name"]]
         r["train_launches"] = train_launches[r["name"]]
         r["aspp_ocr_launches"] = aspp_ocr_launches[r["name"]]
+        r["deepv3_launches"] = deepv3_launches[r["name"]]
         r["mscale_launches"] = mscale_launches[r["name"]]
         r["mapillary_launches"] = mapillary_launches[r["name"]]
         r["ddp_launches"] = ddp_launches[r["name"]]

@@ -6,8 +6,10 @@ also runs where only PyTorch is installed:
 """
 import pytest
 import torch
+import torch.nn.functional as F
 
 from tpuseg_torch.kernels import bottleneck_fused as bk
+from tpuseg_torch.kernels import dilated_conv as dc
 from tpuseg_torch.kernels import ocr_attention as ak
 from tpuseg_torch.utils.profiling import counters
 
@@ -150,3 +152,66 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                                  (16,), (16, 64), (64,))]
     with pytest.raises(TypeError):
         bk.fused_bottleneck(x, *w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,d,pad_h", [
+    ((8, 4096, 100, 100), 12, 12),   # the DeepLabV3+ train cell's convs
+    ((8, 4096, 100, 100), 24, 24),
+    ((8, 4096, 100, 100), 36, 36),
+    ((1, 720, 256, 512), 12, 12),    # HRNet_ASPP_OCR's rate-12 conv
+    ((2, 64, 37, 75), 12, 12),       # a W no 16-wide tile divides
+    ((1, 2048, 100, 100), 36, 36),   # batch 1, Cin of the ResNet trunks
+    ((1, 256, 104, 50), 36, 0)])     # a dp x sp band: halo rows, pad_h 0
+def test_dilated_conv_kernel(cuda, shape, d, pad_h):
+    """The kernel against its plain version in f32 (from the same bf16
+    inputs, TF32 off), and its gradients, through the autograd Function,
+    against the route before the kernel: ``F.conv2d`` on NCHW memory. The
+    output's max |d| bound is a few bf16 ulps of |out| < 8."""
+    g = torch.Generator().manual_seed(2)
+    b, cin, h, w = shape
+    x = torch.randn(*shape, generator=g).to(cuda, torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    wt = (torch.randn(256, cin, 3, 3, generator=g) / (9 * cin) ** 0.5).to(
+        cuda, torch.bfloat16)
+    before, = _launches("dilated_conv")
+    got = dc.dilated_conv3x3(x, wt, (pad_h, d), d)
+    torch.cuda.synchronize()
+    assert _launches("dilated_conv") == (before + 1,)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    want = dc.dilated_conv3x3_reference(x.float(), dc.pack_weight(wt.float()),
+                                        pad_h, d, d)
+    assert got.shape == want.shape
+    assert _rel(got, want) < 5e-3
+    assert float((got.float() - want).abs().max()) < 0.1
+
+    xa, wa = x.clone().requires_grad_(), wt.clone().requires_grad_()
+    xb = x.contiguous().requires_grad_()
+    wb = wt.contiguous().requires_grad_()
+    out = dc.dilated_conv3x3(xa, wa, (pad_h, d), d)
+    ref = F.conv2d(xb, wb, None, 1, (pad_h, d), d)
+    grad = torch.randn(out.shape, generator=g).to(cuda, torch.bfloat16)
+    out.backward(grad)
+    ref.backward(grad)
+    assert _rel(xa.grad, xb.grad) < 1e-2
+    assert _rel(wa.grad, wb.grad) < 1e-2
+
+
+@pytest.mark.cuda
+def test_dilated_conv_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros(1, 64, 16, 16, device=cuda, dtype=torch.bfloat16)
+    assert dc.supports(x, torch.zeros(256, 64, 3, 3, device=cuda,
+                                      dtype=torch.bfloat16), dilation=(12, 12))
+    for cin, cout, dt in ((64, 96, torch.bfloat16), (60, 256, torch.bfloat16),
+                          (64, 256, torch.float32)):
+        xx = torch.zeros(1, cin, 16, 16, device=cuda, dtype=dt)
+        wt = torch.zeros(cout, cin, 3, 3, device=cuda, dtype=dt)
+        assert not dc.supports(xx, wt, dilation=(12, 12))
+        with pytest.raises(ValueError):
+            torch.ops.tpuseg_torch.dilated_conv3x3(
+                xx.contiguous(memory_format=torch.channels_last),
+                dc.pack_weight(wt), 12, 12, 12)
+    with pytest.raises(ValueError):  # NCHW memory
+        torch.ops.tpuseg_torch.dilated_conv3x3(
+            x, dc.pack_weight(torch.zeros(256, 64, 3, 3, device=cuda,
+                                          dtype=torch.bfloat16)), 1, 1, 1)

@@ -26,7 +26,7 @@ from tpuseg_torch.utils.profiling import count
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpuseg_torch"
 SOURCES = ("ocr_attention.cu", "bottleneck_fused.cu",
-           "bottleneck_fused_any.cu")
+           "bottleneck_fused_any.cu", "dilated_conv.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,6 +50,10 @@ SIGNATURES = {
     # c, m, batch, h, w -> int[7]: resident, consumers, tiles a round,
     # x stages, w stages, smem, MP
     "tpuseg_bottleneck_any_plan": (_I, _I, _I, _I, _I, _P),
+    # x, packed weight, out, batch, h, w, cin, cout, pad_h, pad_w,
+    # dilation, stream
+    "tpuseg_dilated_conv3x3": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _P),
 }
 
 

@@ -5,12 +5,20 @@ Port of ``tpuseg/models/heads.py:15-108`` (reference: network/utils.py:
 ASPP's ``img_conv.{0,1}`` and ``features.{i}.{0,1}``, DPC's
 ``{a..e}.{0,1}`` (each a Sequential(conv, BN, ReLU)).
 
-The dilated 3x3 convs (rates 12 / 24 / 36 at output stride 8, DPC's up to
-42) run on NCHW memory (``Conv2d.nchw``) and the concatenation goes back
-to channels_last: on an H100, cuDNN's channels_last kernels for these
-rates took about 1 s for HRNet_ASPP_OCR's 720 -> 256 rate-12 conv at
-256x512 against about 15 ms on NCHW, with or without
-``cudnn.benchmark`` (``chip_smoke.py`` [zoo-eval], PERF.md).
+ASPP's dilated 3x3 convs (rates 12 / 24 / 36 at output stride 8) run
+``csrc/dilated_conv.cu`` (``kernels/dilated_conv.py``) wherever its
+``supports()`` takes them (on the card: bf16, Cin a multiple of 8, Cout
+64-256), on channels_last memory; their backward is cuDNN's dgrad and
+wgrad on NCHW memory, from one NCHW copy of the input for the three
+branches. cuDNN has no good forward for them: on NCHW memory it picks the
+legacy ``implicit_convolve_sgemm`` (20.2 ms a crop of the DeepLabV3+
+train step's 51.8; HRNet_ASPP_OCR's 720 -> 256 rate-12 conv at 256x512
+about 15 ms, 34x its bound), and its channels_last kernels for these rates
+took about 1 s for that conv, with or without ``cudnn.benchmark``
+(``chip_smoke.py`` [zoo-eval], PERF.md). A conv the kernel does not take
+stays on NCHW memory (``Conv2d.nchw``), as DPC's convs do: its unequal
+(ry, rx) rates and its depthwise form are not the kernel's. The
+concatenation goes back to channels_last.
 
 On bands (dp x sp, ``parallel/spatial.py``) ASPP's image pooling takes the
 whole image's mean (``ops.global_avg_pool``); its 1x1 conv and BN then
@@ -27,15 +35,52 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from tpuseg_torch.kernels import dilated_conv
 from tpuseg_torch.models.layers import Conv2d, Norm, conv
 from tpuseg_torch.ops import global_avg_pool
 from tpuseg_torch.parallel import spatial
 
 
+class AtrousConv2d(Conv2d):
+    """ASPP's dilated 3x3 conv (no bias, stride 1): the kernel where
+    ``dilated_conv.supports`` takes it, else cuDNN on NCHW memory (module
+    docstring). ``x_nchw``: x's NCHW copy for the backward, shared by the
+    branches (:func:`backward_copy`)."""
+
+    nchw = True
+
+    def takes_kernel(self, x: torch.Tensor) -> bool:
+        return self.bias is None and dilated_conv.supports(
+            x, self.weight, self.stride, self.dilation, self.groups)
+
+    def forward(self, x: torch.Tensor,
+                x_nchw: torch.Tensor | None = None) -> torch.Tensor:
+        if not self.takes_kernel(x):
+            return super().forward(x)
+        x, padding = self.band_rows(x)
+        return dilated_conv.dilated_conv3x3(
+            x, self.weight.to(x.dtype), padding, self.dilation[0], x_nchw)
+
+
+def backward_copy(x: torch.Tensor, convs) -> torch.Tensor | None:
+    """x on NCHW memory, once for every conv of ``convs`` that takes the
+    kernel, where a backward will read it (a gradient is wanted and x is
+    not a band); else None and each conv's backward copies its own."""
+    if spatial.active() is not None or not torch.is_grad_enabled() \
+            or not any(c.takes_kernel(x) for c in convs) \
+            or not (x.requires_grad
+                    or any(c.weight.requires_grad for c in convs)):
+        return None
+    return x.detach().contiguous()
+
+
 def _conv_bn_relu(cin: int, cout: int, kernel: int, dilation: int = 1
                   ) -> nn.Sequential:
-    c = conv(cin, cout, kernel, dilation=dilation)
-    c.nchw = dilation > 1  # module docstring
+    if dilation > 1:
+        c = AtrousConv2d(cin, cout, kernel, padding=dilation,
+                         dilation=dilation, bias=False)
+    else:
+        c = conv(cin, cout, kernel, dilation=dilation)
     return nn.Sequential(c, Norm(cout), nn.ReLU())
 
 
@@ -63,7 +108,11 @@ class ASPP(nn.Module):
         with spatial.replicated():
             img = self.img_conv(pooled)
         img = img.to(x.dtype).expand(-1, -1, *x.shape[-2:])
-        outs = [img] + [f(x) for f in self.features]
+        outs = [img, self.features[0](x)]
+        atrous = [f[0] for f in self.features[1:]]
+        shared = backward_copy(x, atrous)
+        for c, (_, norm, relu) in zip(atrous, self.features[1:]):
+            outs.append(relu(norm(c(x, shared))))
         return _channels_last(torch.cat(outs, dim=1))
 
 

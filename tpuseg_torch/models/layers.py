@@ -58,15 +58,21 @@ class Conv2d(nn.Conv2d):
 
     nchw = False
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        weight = self.weight.to(x.dtype)
+    def band_rows(self, x: torch.Tensor) -> tuple:
+        """(x, padding): on a band, x with the halo rows its output rows
+        read and no H padding; else both as they are."""
         padding = self.padding
         if spatial.active() is not None and (
                 self.kernel_size[0], self.stride[0], padding[0]) != (1, 1, 0):
             x = spatial.conv_rows(x, self.kernel_size[0], self.stride[0],
                                   padding[0], self.dilation[0])
             padding = (0, padding[1])
+        return x, padding
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        weight = self.weight.to(x.dtype)
+        x, padding = self.band_rows(x)
         if self.nchw:
             x, weight = x.contiguous(), weight.contiguous()
         return F.conv2d(x, weight, bias, self.stride, padding,

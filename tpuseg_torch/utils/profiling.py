@@ -48,6 +48,7 @@ SPANS = (
     "op.bn",            # models/layers.py BatchNorm2d.forward
     "kernel.ocr_attention",  # csrc/ocr_attention.cu launch
     "kernel.bottleneck",     # csrc/bottleneck_fused{,_any}.cu launch
+    "kernel.dilated_conv",   # csrc/dilated_conv.cu launch (ASPP's convs)
 )
 
 
