@@ -10,7 +10,11 @@ belongs to it is found by name, under the benchmark's folder:
   general driver under ``drivers/`` that reads them;
 - ``limits/<cell>.json``: each compared number's limit;
 - ``reference/<reference>.py``: the plain reference the config names;
-- ``metrics/<metric>.py``: the reader of one per-layer metric.
+- ``metrics/<metric>.py``: the reader of one per-layer metric;
+- ``tests/tiny/configs/<config>.json``: the configuration's tiny CPU
+  variant, and ``tests/tiny/traffic/<traffic>.json``: the mix's small
+  shapes, which the benchmark's CPU tests build the cell from (no run
+  reads them).
 
 Adding a configuration, a mix or a metric is adding such files and their
 ``BENCHMARK.json`` entries.

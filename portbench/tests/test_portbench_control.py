@@ -9,10 +9,10 @@ from portbench.control import control_readings
 from portbench import core
 
 
-@pytest.mark.parametrize("name", ["hrnet-w48-mscale.eval-3scale-bs4",
-                                  "deepv3plus-w38.train-800-bs8"])
+@pytest.mark.parametrize("name", _tiny.CELLS)
 def test_control_is_not_correct(tmp_path, name):
-    root, manifest = _tiny.tiny_root(tmp_path, limits=_tiny.TIGHT)
+    root, manifest = _tiny.tiny_root(tmp_path, limits=_tiny.TIGHT,
+                                     cells=[name])
     cell = core.cell(name, manifest, root)
     if cell.traffic["kind"] == "train":
         cell.traffic["checked_steps"] = 1

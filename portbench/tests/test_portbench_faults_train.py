@@ -1,7 +1,8 @@
-"""The train cell's comparison finds each fault planted under its timed
-path, on a tiny f32 cell on the CPU with the look for a chip skipped,
-under limits that f32 rounding alone meets and under the cell's committed
-limits; and a window whose state turns non-finite is not correct."""
+"""A train cell's comparison finds each fault planted under its timed
+path, on a tiny f32 cell on the CPU with the look for a chip skipped:
+``CELL`` under limits that f32 rounding alone meets, and every train cell
+of ``BENCHMARK.json`` under its committed limits; and a window whose state
+turns non-finite is not correct."""
 import pytest
 import torch
 
@@ -11,12 +12,11 @@ from portbench import faults
 CELL = "deepv3plus-w38.train-800-bs8"
 
 
-@pytest.mark.parametrize("limits", [_tiny.TIGHT, _tiny.COMMITTED],
-                         ids=["tight", "committed"])
+@pytest.mark.parametrize("cell,limits", _tiny.fault_cases("train", CELL))
 @pytest.mark.parametrize("fault", faults.FAULTS)
-def test_fault_is_not_correct(tmp_path, monkeypatch, fault, limits):
+def test_fault_is_not_correct(tmp_path, monkeypatch, fault, cell, limits):
     faults.plant("train", fault, monkeypatch)
-    res = _tiny.tiny_run(tmp_path, CELL, limits=limits)
+    res = _tiny.tiny_run(tmp_path, cell, limits=limits)
     assert not res.correct, (fault, res.compared)
 
 

@@ -1,6 +1,7 @@
 """``BENCHMARK.json`` against the benchmark's contract: names, units and
-lengths, what each metric moves, the cells' chips, and every file a cell
-needs found by name."""
+lengths, what each metric moves, the cells' chips, no two configurations
+alike in source and cuts, and every file a cell needs found by name, its
+tiny CPU variant's among them."""
 import ast
 import json
 import math
@@ -114,6 +115,32 @@ def test_configs_are_files_under_paths():
             assert not WIDTH.search(key), key
         assert (core.HERE / "reference"
                 / f"{body.get('reference', c['name'])}.py").exists()
+
+
+def test_no_two_configurations_share_source_and_reduced():
+    """A configuration with another's source and cuts is no new one."""
+    keys = [(c["source"], tuple(sorted(c["reduced"])))
+            for c in MANIFEST["configs"]]
+    assert len(keys) == len(set(keys)), keys
+
+
+TINY = ([("configs", c["name"]) for c in MANIFEST["configs"]]
+        + [("traffic", t) for t in
+           dict.fromkeys(w["traffic"] for w in MANIFEST["workloads"])])
+
+
+@pytest.mark.parametrize("kind,name", TINY)
+def test_tiny_file_is_there(kind, name):
+    """``tests/tiny/<kind>/<name>.json``, overriding keys of the full file
+    alone (a configuration's under ``model``)."""
+    tiny = json.loads((core.HERE / "tests" / "tiny" / kind / f"{name}.json")
+                      .read_text())
+    full = json.loads((core.HERE / kind / f"{name}.json").read_text())
+    if kind == "configs":
+        assert set(tiny) == {"arch", "model"}
+        assert tiny["arch"] and set(tiny["model"]) <= set(full["model"])
+    else:
+        assert set(tiny) <= set(full) - {"kind"}
 
 
 def test_every_cell_finds_its_files():
