@@ -159,6 +159,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     ((8, 4096, 100, 100), 12, 12),   # the DeepLabV3+ train cell's convs
     ((8, 4096, 100, 100), 24, 24),
     ((8, 4096, 100, 100), 36, 36),
+    ((8, 448, 100, 100), 12, 12),    # EfficientNet-B4's ASPP: Cin 448
+    ((8, 448, 100, 100), 36, 36),
     ((1, 720, 256, 512), 12, 12),    # HRNet_ASPP_OCR's rate-12 conv
     ((2, 64, 37, 75), 12, 12),       # a W no 16-wide tile divides
     ((1, 2048, 100, 100), 36, 36),   # batch 1, Cin of the ResNet trunks
@@ -215,3 +217,72 @@ def test_dilated_conv_rejects_what_the_kernel_does_not_take(cuda):
         torch.ops.tpuseg_torch.dilated_conv3x3(
             x, dc.pack_weight(torch.zeros(256, 64, 3, 3, device=cuda,
                                           dtype=torch.bfloat16)), 1, 1, 1)
+
+
+def _record_states(module, states: list, monkeypatch) -> None:
+    """Wrap ``module.drop_path`` to record the CUDA generator's state, the
+    batch and the rate of each draw. (A recomputing checkpoint stops once
+    the last tensor it needs is saved, inside the draw's product, so what
+    the draw returns is not seen there.)"""
+    draw = module.drop_path
+
+    def recorded(x, rate):
+        states.append((torch.cuda.get_rng_state(), x.shape[0], rate))
+        return draw(x, rate)
+    monkeypatch.setattr(module, "drop_path", recorded)
+
+
+@pytest.mark.cuda
+def test_drop_path_masks_are_the_f32_references(cuda, monkeypatch):
+    """The bf16 program (``DeepV3PlusEffB4``) and the f32 reference
+    (``portbench/reference/deepv3plus-effb4.py``), both with every block
+    remat'd, seeded alike, draw their drop-path masks from the same
+    generator states: 25 in the forward, and the same 25 again, block by
+    block in reverse, where the backward recomputes. From each state the
+    program's bf16 draw gives the reference's f32 mask."""
+    import json
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    from portbench import core
+    from portbench.reference.common import normalize
+    from tpuseg_torch.config import make_config
+    from tpuseg_torch.models import efficientnet, get_model
+    from tpuseg_torch.ops import device_normalize
+
+    ref = core.load_module(core.HERE / "reference" / "deepv3plus-effb4.py")
+    m = json.loads((core.HERE / "configs" / "deepv3plus-effb4.json")
+                   .read_text())["model"]
+    image = torch.randint(0, 256, (16, 64, 64, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(4)).to(cuda)
+    program = get_model(make_config({
+        "model.arch": "deepv3.DeepV3PlusEffB4", "model.remat": True,
+        "model.compute_dtype": "bfloat16", "dataset.num_classes": 19}))
+    program = program.to(cuda, memory_format=torch.channels_last).train()
+    reference = ref.build(m).to(cuda).train().set_remat(True)
+    draw_bf16, draw_f32 = efficientnet.drop_path, ref.drop_path
+    got, want = [], []
+    _record_states(efficientnet, got, monkeypatch)
+    _record_states(ref, want, monkeypatch)
+    seed = 2**32 + 77
+    torch.manual_seed(seed)
+    program(device_normalize(image))["pred"].float().sum().backward()
+    torch.manual_seed(seed)
+    reference(normalize(image, m["mean"], m["std"]))["pred"].sum().backward()
+    assert len(got) == len(want) == 50
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a[0], b[0]) and a[1:] == b[1:], i
+    for i, (a, b) in enumerate(zip(got[25:], got[:25][::-1])):
+        assert torch.equal(a[0], b[0]) and a[1:] == b[1:], i
+    dropped = 0
+    for state, n, rate in got[:25]:
+        ones = torch.ones((n, 1, 1, 1), device=cuda)
+        torch.cuda.set_rng_state(state)
+        mask = draw_bf16(ones.bfloat16(), rate) != 0
+        torch.cuda.set_rng_state(state)
+        assert torch.equal(mask, draw_f32(ones, rate) != 0)
+        dropped += int((~mask).sum())
+    assert dropped > 0

@@ -207,6 +207,61 @@ def test_no_span_name_outside_spans(eval_trace, train_trace):
     assert recorded and recorded <= set(SPANS), recorded - set(SPANS)
 
 
+EFFB4_SETS = {"model.arch": "deepv3.DeepV3PlusEffB4",
+              "model.compute_dtype": "float32", "model.remat": True,
+              "dataset.num_classes": 19}
+
+
+@pytest.fixture(scope="module")
+def effb4():
+    """DeepLabV3+ on the full-width EfficientNet-B4 trunk (32 MBConv
+    blocks, 25 of them residual with a drop path) and a 2 x 32 x 32 input."""
+    torch.manual_seed(0)
+    model = get_model(make_config(EFFB4_SETS))
+    return model, torch.randn(2, 32, 32, 3)
+
+
+def test_effb4_forward_spans_each_depthwise_conv_and_se(effb4):
+    """One eval forward under a CPU profiler: an ``op.dwconv`` and a
+    ``model.se`` span for each of the 32 blocks, inside ``model.trunk``."""
+    model, x = effb4
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]) as prof:
+        model.eval()(x)
+    spans = _program(_recorded(prof))
+    names = [s[0] for s in spans]
+    assert names.count("op.dwconv") == names.count("model.se") == 32
+    for (name, *_), up in zip(spans, _ancestors(spans)):
+        if name in ("op.dwconv", "model.se"):
+            assert up == ["model.trunk"], (name, up)
+
+
+def test_effb4_drop_path_draws_count(effb4):
+    """25 draws a training forward, as many again where the backward
+    recomputes the remat'd blocks; none in eval."""
+    model, x = effb4
+    profiling.reset_counters()
+    with torch.no_grad():
+        model.eval()(x)
+    assert profiling.counters().get("drop_path.draws", 0) == 0
+    out = model.train()(x)["pred"]
+    assert profiling.counters()["drop_path.draws"] == 25
+    out.sum().backward()
+    assert profiling.counters()["drop_path.draws"] == 50
+
+
+def test_effb4_makes_no_span_object_without_a_profiler(effb4, monkeypatch):
+    made = []
+    monkeypatch.setattr(profiling, "_RECORD",
+                        lambda name: made.append(name) or profiling._NO_SPAN)
+    model, x = effb4
+    with torch.no_grad():
+        model.eval()(x)
+    assert made == []
+    with profile(activities=[ProfilerActivity.CPU]), torch.no_grad():
+        model(x[:1])
+    assert made.count("op.dwconv") == 32
+
+
 def test_counters_add_copy_and_reset():
     profiling.reset_counters()
     profiling.count("a")

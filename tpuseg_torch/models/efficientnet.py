@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from tpuseg_torch.models.hrnet import remat_call
 from tpuseg_torch.models.layers import Conv2d, Norm, conv
 from tpuseg_torch.ops import global_avg_pool, upcast
-from tpuseg_torch.utils.profiling import spanned
+from tpuseg_torch.utils.profiling import count, span, spanned
 
 # B0 stage table: (expand, channels, repeats, stride, kernel)
 _B0_STAGES = (
@@ -62,7 +62,13 @@ def round_repeats(n: int, depth_mult: float) -> int:
 def drop_path(x: torch.Tensor, rate: float) -> torch.Tensor:
     """Stochastic depth on a residual branch: one keep draw a sample, from
     the device's default generator. Under dp x sp the ``Trainer`` seeds it
-    per dp group, so the bands of one image draw the same mask."""
+    per dp group, so the bands of one image draw the same mask. A draw in
+    x's dtype gives the mask an f32 draw from the same generator state
+    gives, on the CPU and on CUDA (both compare an f32 uniform with the
+    keep probability), so a bf16 model draws an f32 model's masks. Each
+    draw counts in ``drop_path.draws`` (again where remat recomputes the
+    block)."""
+    count("drop_path.draws")
     keep = 1.0 - rate
     mask = torch.empty((x.shape[0], 1, 1, 1), device=x.device,
                        dtype=x.dtype).bernoulli_(keep)
@@ -79,6 +85,7 @@ class SqueezeExcite(nn.Module):
         self.conv_reduce = conv(channels, se_ch, 1, bias=True)
         self.conv_expand = conv(se_ch, channels, 1, bias=True)
 
+    @spanned("model.se")
     def forward(self, x):
         s = global_avg_pool(upcast(x)).to(x.dtype)
         s = self.conv_expand(F.silu(self.conv_reduce(s)))
@@ -119,11 +126,12 @@ class MBConv(nn.Module):
     def forward(self, x):
         if self.expand != 1:
             y = F.silu(self.bn1(self.conv_pw(x)))
-            y = F.silu(self.bn2(self.conv_dw(y)))
-            project, norm = self.conv_pwl, self.bn3
+            dw_norm, project, norm = self.bn2, self.conv_pwl, self.bn3
         else:
-            y = F.silu(self.bn1(self.conv_dw(x)))
-            project, norm = self.conv_pw, self.bn2
+            y, dw_norm, project, norm = x, self.bn1, self.conv_pw, self.bn2
+        with span("op.dwconv"):
+            y = self.conv_dw(y)
+        y = F.silu(dw_norm(y))
         if self.se is not None:
             y = self.se(y)
         y = norm(project(y))

@@ -46,6 +46,8 @@ SPANS = (
                         # the backward where it is recomputed
     "op.resize",        # ops/resize.py resize_bilinear
     "op.bn",            # models/layers.py BatchNorm2d.forward
+    "op.dwconv",        # models/efficientnet.py MBConv's depthwise conv
+    "model.se",         # models/efficientnet.py SqueezeExcite.forward
     "kernel.ocr_attention",  # csrc/ocr_attention.cu launch
     "kernel.bottleneck",     # csrc/bottleneck_fused{,_any}.cu launch
     "kernel.dilated_conv",   # csrc/dilated_conv.cu launch (ASPP's convs)
